@@ -71,12 +71,9 @@ def _attend(q, k, v, mask, cfg, tree: bool):
 
 def prefill_attention(params, x, positions, cfg, cache_len: int):
     """Causal attention over the prompt, scanned over query chunks of
-    ``cfg.attn_chunk``; returns (out, cache of ``cache_len`` slots)."""
+    ``cfg.attn_chunk``; returns (out, cache of ``cache_len`` slots in the
+    ring layout of ``decode_attention``)."""
     B, S, _ = x.shape
-    if S > cache_len:
-        raise ValueError(f"prompt of {S} does not fit a cache of {cache_len} "
-                         "(the ring layout of long-context serving is not "
-                         "ported)")
     q, k, v = _project_qkv(params, x, cfg, positions)
     kv_pos = positions if positions.dim() == 2 else positions[None].expand(B, S)
     C = min(cfg.attn_chunk, S)
@@ -94,9 +91,17 @@ def prefill_attention(params, x, positions, cfg, cache_len: int):
     kc = torch.zeros(shape, dtype=dt, device=x.device)
     vc = torch.zeros(shape, dtype=dt, device=x.device)
     cp = torch.full((B, cache_len), -1, dtype=torch.int32, device=x.device)
-    kc[:, :S] = k
-    vc[:, :S] = v
-    cp[:, :S] = kv_pos
+    if S <= cache_len:
+        kc[:, :S] = k
+        vc[:, :S] = v
+        cp[:, :S] = kv_pos
+    else:   # ring layout: the last cache_len positions, at slot pos % cache_len
+        keep = S - cache_len
+        slots = (kv_pos[:, keep:] % cache_len).long()
+        bidx = torch.arange(B, device=x.device)[:, None]
+        kc[bidx, slots] = k[:, keep:].to(dt)
+        vc[bidx, slots] = v[:, keep:].to(dt)
+        cp[bidx, slots] = kv_pos[:, keep:].to(torch.int32)
     return out, {"k": kc, "v": vc, "pos": cp}
 
 

@@ -90,9 +90,10 @@ def _layer_caches(jc, i):
     return {n: np.asarray(jc["groups"][0][n][i]) for n in ("k", "v", "pos")}
 
 
-def test_prefill_logits_and_cache(pair):
+@pytest.mark.parametrize("cache_len", [48, 16])   # 16 < prompt: ring layout
+def test_prefill_logits_and_cache(pair, cache_len):
     jm, jp, tm, tp = pair
-    _, (jl, jc), (tl, tc) = _prefill(jm, jp, tm, tp)
+    _, (jl, jc), (tl, tc) = _prefill(jm, jp, tm, tp, cache_len=cache_len)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=0)
     assert len(tc) == jm.cfg.num_layers
     for i, layer in enumerate(tc):
