@@ -15,11 +15,26 @@ Phases, each printing one JSON line:
   4. full-width chain serving (gamma 3) and the autoregressive baseline on
      the same weights;
   5. greedy exactness at full width with 2 target layers in float32: tree
-     and chain tokens must equal the target's greedy tokens.
+     and chain tokens must equal the target's greedy tokens;
+  6. each distill-loss kernel (row_logsumexp, loss_terms, loss_grad)
+     against its plain version at the full-width chunk (N 2048, V 32000), a
+     ragged one (N 37, V 32003, one input at an unaligned row stride) and a
+     small one (N 16, V 1000), in all three modes with a masked-out row;
+     then their times beside their bounds, the plain versions' and, for
+     row_logsumexp, torch.logsumexp's;
+  7. drafter training at full width: Llama-2-7B-Chat (bf16, frozen)
+     generates the distillation data (8 seed prompts of 128 tokens at
+     temperatures 0 and 0.7, 64 response tokens, packed into one 2048-token
+     chunk); the 115M drafter (float32 master weights) takes 2 pretraining
+     steps and 3 TVD++ steps on 4 x 2048 tokens through the kernels, with
+     the launch counts asserted, and one step of the kernel route is held
+     against the plain route;
+  8. the same comparison in float32 with 2 target layers.
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 gives them, and last ``{"ok": true, "device": ...}``. Any failure raises
 and ends the run with a non-zero exit code and no result line.
 """
+import contextlib
 import json
 import math
 import subprocess
@@ -27,6 +42,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -36,9 +52,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense, 700 W
 # another order; bf16 inputs carry 8 bits of mantissa, so their bound is
 # set by the working type
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DISTILL_CU = "src/repro_torch/kernels/csrc/distill_loss.cu"
 KERNEL_ROUTES = {   # name -> (route, source, TPU kernel it replaces)
     "tree_attention": ("cuda", "src/repro_torch/kernels/csrc/tree_attention.cu",
                        "src/repro/kernels/tree_attention.py:85"),
+    "row_logsumexp": ("cuda", DISTILL_CU, "src/repro/kernels/distill_loss.py:78"),
+    "loss_terms": ("cuda", DISTILL_CU, "src/repro/kernels/distill_loss.py:148"),
+    "loss_grad": ("cuda", DISTILL_CU, "src/repro/kernels/distill_loss.py:185"),
 }
 
 
@@ -112,7 +132,8 @@ def phase1_device_and_build():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    logs = build.build_all(list(KERNEL_ROUTES))
+    logs = build.build_all(sorted({Path(src).stem
+                                   for _, src, _ in KERNEL_ROUTES.values()}))
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
@@ -331,6 +352,378 @@ def phase5_greedy_exactness():
     assert ok_chain and ok_tree, "speculative greedy tokens differ from AR"
     assert launches == tstats.rounds * per_round, (launches, tstats.rounds)
 
+# ------------------------------------------------ distillation loss (6-8)
+
+DISTILL_MODES = ("kld", "tvd", "tvdpp")
+# distill-loss tolerances against the plain version on the same inputs and
+# the same row logsumexps (so p and q are the same numbers on both sides):
+# lse 1e-5 absolute; row sums 1e-5 relative (floor 1, times inv_sigma for
+# the tvdpp weights), since both sum fp32 terms in another order; gradient
+# entries, of order p (about 1/V), 1e-6 absolute. Where q and p are within
+# rounding of each other, r = 1{q > p} may flip between the two: that moves
+# a row's c by at most p * inv_sigma (tvd: by p) and its sum p*r by p, and
+# the gradient entry by g * p * inv_sigma; each near tie adds that to the
+# tolerance, and the count of near ties is printed.
+LSE_TOL, ROW_RTOL, GRAD_TOL = 1e-5, 1e-5, 1e-6
+# fp32 operations per (row, vocab) element, an exp counted as one
+FLOPS_PER_ELEM = {"row_logsumexp": 4, "loss_terms": 14, "loss_grad": 11}
+
+
+def distill_inputs(gen, N, V, s_stride=None):
+    """Student logits (std 2) at row stride ``s_stride`` (default V),
+    teacher logits (std 3) contiguous, and a mask with row 0 masked out."""
+    dev = "cuda"
+    width = s_stride or V
+    s = (torch.randn((N, width), generator=gen, device=dev) * 2)[:, :V]
+    t = torch.randn((N, V), generator=gen, device=dev) * 3
+    mask = torch.ones((N,), device=dev)
+    mask[0] = 0.0
+    return s, t, mask
+
+
+def check_distill_case(label, s, t, mask, mode):
+    """Each kernel against its plain version on the same inputs; returns
+    the case's record (raises on disagreement)."""
+    from repro_torch.kernels import distill_loss as dk
+    from repro_torch.kernels import ref
+    N, V = s.shape
+    dev = s.device
+    lse_s, lse_t = dk.row_logsumexp(s), dk.row_logsumexp(t)
+    err_lse = max((lse_s - ref.ref_logsumexp(s)).abs().max().item(),
+                  (lse_t - ref.ref_logsumexp(t)).abs().max().item())
+    mu = torch.tensor([0.3 if mode == "tvdpp" else 0.0], device=dev)
+    isg = torch.tensor([2.0 if mode == "tvdpp" else 1.0], device=dev)
+    got = dk.loss_terms(s, t, lse_s, lse_t, mu, isg, mode)
+    want = ref.ref_loss_terms(s, t, lse_s, lse_t, mu, isg, mode)
+    p = torch.exp(s - lse_s[:, None])
+    q = torch.exp(t - lse_t[:, None])
+    near = (q - p).abs() <= 1e-6 * torch.maximum(p, q)
+    w_flip = float(isg.item()) if mode == "tvdpp" else 1.0
+    slack = (p * near).sum(-1)
+    row_err, row_ok = [], True
+    for k, (a, b) in enumerate(zip(got, want)):
+        tol = ROW_RTOL * (1.0 + b.abs()) * max(1.0, w_flip) + slack * w_flip
+        row_err.append((a - b).abs().max().item())
+        row_ok &= bool(((a - b).abs() <= tol).all())
+    g_rows = (torch.rand((N,), generator=torch.Generator(device=dev)
+                         .manual_seed(N), device=dev) + 0.5) * mask
+    c = got[1]
+    gk = dk.loss_grad(s, t, lse_s, lse_t, c, g_rows, mu, isg, mode)
+    gp = ref.ref_loss_grad(s, t, lse_s, lse_t, c, g_rows, mu, isg, mode)
+    torch.cuda.synchronize()
+    gtol = GRAD_TOL + near * (g_rows[:, None] * p * w_flip)
+    err_grad = (gk - gp).abs().max().item()
+    ok = (err_lse <= LSE_TOL and row_ok and bool(((gk - gp).abs() <= gtol).all())
+          and not gk[0].any().item()
+          and all(bool(torch.isfinite(x).all()) for x in (lse_s, *got, gk)))
+    rec = {"case": label, "N": N, "V": V, "s_row_stride": s.stride(0),
+           "mode": mode, "err_lse": err_lse, "err_rows": row_err,
+           "err_grad": err_grad, "near_ties": int(near.sum().item()), "ok": ok}
+    if not ok:
+        emit({"phase": 6, "failed_case": rec})
+        raise AssertionError(f"distill-loss kernels disagree with their plain "
+                             f"versions: {rec}")
+    return rec
+
+
+def distill_bound_ms(name, N, V):
+    """Least time for the card: each input read once, each output written
+    once, against FLOPS_PER_ELEM fp32 operations per element."""
+    rows_in = {"row_logsumexp": 0, "loss_terms": 2, "loss_grad": 4}[name]
+    rows_out = {"row_logsumexp": 1, "loss_terms": 4, "loss_grad": 0}[name]
+    mats_in = 1 if name == "row_logsumexp" else 2
+    mats_out = 1 if name == "loss_grad" else 0
+    nbytes = 4 * (N * V * (mats_in + mats_out) + N * (rows_in + rows_out))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = FLOPS_PER_ELEM[name] * N * V / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase6_distill_kernels():
+    """The three distill-loss kernels against their plain versions, then
+    their device times at the full-width chunk (tvdpp, the path's mode)."""
+    from repro_torch.kernels import distill_loss as dk
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [("full-width", 2048, 32000, None),
+             ("ragged", 37, 32003, 32005),     # s rows off 16-byte boundaries
+             ("small", 16, 1000, None)]
+    results, worst = [], {}
+    for label, N, V, stride in cases:
+        s, t, mask = distill_inputs(gen, N, V, stride)
+        for mode in DISTILL_MODES:
+            rec = check_distill_case(label, s, t, mask, mode)
+            results.append(rec)
+            if label == "full-width":
+                for name, err in (("row_logsumexp", rec["err_lse"]),
+                                  ("loss_terms", max(rec["err_rows"])),
+                                  ("loss_grad", rec["err_grad"])):
+                    worst[name] = max(worst.get(name, 0.0), err)
+        del s, t, mask
+
+    # timing at the full-width chunk, rotating two input sets (each 524 MB,
+    # beyond the 50 MB L2)
+    N, V = 2048, 32000
+    sets = []
+    for _ in range(2):
+        s, t, mask = distill_inputs(gen, N, V)
+        lse_s, lse_t = dk.row_logsumexp(s), dk.row_logsumexp(t)
+        mu = torch.tensor([0.3], device="cuda")
+        isg = torch.tensor([2.0], device="cuda")
+        c = dk.loss_terms(s, t, lse_s, lse_t, mu, isg, "tvdpp")[1]
+        sets.append((s, t, lse_s, lse_t, c, mask / mask.sum(), mu, isg))
+    it = iter(range(10 ** 9))
+
+    def rotate(fn):
+        return lambda: fn(*sets[next(it) % len(sets)])
+
+    fns = {
+        "row_logsumexp": {
+            "kernel": lambda s, *_: dk.row_logsumexp(s),
+            "plain": lambda s, *_: ref.ref_logsumexp(s),
+            "library": lambda s, *_: torch.logsumexp(s, -1)},
+        "loss_terms": {
+            "kernel": lambda s, t, ls, lt, c, g, mu, isg:
+                dk.loss_terms(s, t, ls, lt, mu, isg, "tvdpp"),
+            "plain": lambda s, t, ls, lt, c, g, mu, isg:
+                ref.ref_loss_terms(s, t, ls, lt, mu, isg, "tvdpp")},
+        "loss_grad": {
+            "kernel": lambda s, t, ls, lt, c, g, mu, isg:
+                dk.loss_grad(s, t, ls, lt, c, g, mu, isg, "tvdpp"),
+            "plain": lambda s, t, ls, lt, c, g, mu, isg:
+                ref.ref_loss_grad(s, t, ls, lt, c, g, mu, isg, "tvdpp")},
+    }
+    timings, report = {}, {}
+    for name, variants in fns.items():
+        # device time (graph replay) in turns kernel, plain, library, kernel
+        dev = {v: graph_ms(rotate(fn), iters=50) for v, fn in variants.items()}
+        dev["kernel_repeat"] = graph_ms(rotate(variants["kernel"]), iters=50)
+        bound_ms, bound_by = distill_bound_ms(name, N, V)
+        report[name] = {"device_ms": dev, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+        timings[name] = {"max_abs_err": worst[name], "ms": dev["kernel"],
+                         "plain_ms": dev["plain"], "bound_ms": bound_ms,
+                         "bound_by": bound_by,
+                         "library_ms": dev.get("library")}
+    emit({"phase": 6, "cases": results, "tolerances": {
+        "lse_abs": LSE_TOL, "rows_rel": ROW_RTOL, "grad_abs": GRAD_TOL},
+        "timing_shape": "N2048 V32000 fp32 tvdpp, 2 input sets",
+        "timing": report})
+    del sets
+    torch.cuda.empty_cache()
+    return timings
+
+
+def param_checksum(params):
+    from repro_torch.optim import tree_leaves
+    return sum(float(p.double().sum()) for p in tree_leaves(params))
+
+
+def rel_l2_errors(got, want):
+    from repro_torch.optim import tree_leaves
+    return [((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+            for a, b in zip(tree_leaves(got), tree_leaves(want))]
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The kernel route with each kernel's plain version in its place."""
+    from repro_torch.kernels import ops, ref
+    saved = {n: getattr(ops, n) for n in ("row_logsumexp", "loss_terms", "loss_grad")}
+    ops.row_logsumexp = ref.ref_logsumexp
+    ops.loss_terms = ref.ref_loss_terms
+    ops.loss_grad = ref.ref_loss_grad
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def compare_routes(draft, target, params, t_params, tokens, loss_rtol, grad_rtol):
+    """One TVD++ step's loss and gradients through the kernels against the
+    plain route (softmax, the reference's arithmetic), from the same state
+    and batch.
+
+    The TVD++ surrogate's value is 0 up to rounding by construction (its
+    advantage is centred on the p-weighted mean), so the loss is compared on
+    a scale of at least 1. The gradient is compared in relative L2 norm per
+    parameter. Beside the order of sums, two float computations of p and q
+    differ at near ties of q and p, where r = 1{q > p} flips and moves that
+    logit's gradient by g * p * inv_sigma. The size of that effect on this
+    batch is measured as the floor: the plain route against the kernel route
+    run with the plain versions (p = exp(x - lse) in place of a softmax),
+    two plain computations that differ only in rounding. The kernels must
+    come within grad_rtol plus three times that floor."""
+    from repro_torch.training.finetune import distill_loss_and_grads
+    mask = torch.ones(tokens.shape, device=tokens.device)
+
+    def run(kernels):
+        return distill_loss_and_grads(draft, target, params, t_params, tokens,
+                                      mask, "tvdpp", use_kernels=kernels)
+
+    lk, gk = run(True)
+    lp, gp = run(False)
+    with plain_versions():
+        _, gr = run(True)
+    errs = rel_l2_errors(gk, gp)
+    floor = max(rel_l2_errors(gr, gp))
+    loss_err = abs(lk.item() - lp.item())
+    out = {"loss_kernels": lk.item(), "loss_plain": lp.item(),
+           "loss_abs_err": loss_err,
+           "loss_tol": loss_rtol * max(1.0, abs(lp.item())),
+           "grad_rel_l2_max": max(errs),
+           "grad_rel_l2_kernels_vs_plain_versions": max(rel_l2_errors(gk, gr)),
+           "grad_rel_l2_floor": floor,
+           "grad_rel_l2_tol": grad_rtol + 3 * floor}
+    out["ok"] = (math.isfinite(lk.item()) and loss_err <= out["loss_tol"]
+                 and max(errs) <= out["grad_rel_l2_tol"])
+    return out
+
+
+def profile_step(step_fn, state, t_params, tokens, wall_ms):
+    """Where one distill step's device time goes (torch.profiler), against
+    the unprofiled wall time of a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    mask = torch.ones(tokens.shape, device=tokens.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(state, t_params, tokens, mask)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    if not kernels or total_us <= 0:
+        return {"profiled": None}
+
+    def share(pred):
+        return sum(e.self_device_time_total for e in kernels if pred(e.key)) / total_us
+
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return {"device_ms_per_step": total_us / 1e3,
+            "wall_ms_per_step_unprofiled": wall_ms,
+            "device_busy_share": total_us / 1e3 / wall_ms,
+            "share_distill_kernels": {
+                n: share(lambda k, n=n: f"{n}_kernel" in k)
+                for n in ("row_logsumexp", "loss_terms", "loss_grad")},
+            "share_matmul": share(lambda k: any(w in k.lower() for w in
+                                                ("nvjet", "gemm", "xmma"))),
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def phase7_training(smi):
+    """Datagen, 2 pretraining steps and 3 TVD++ steps at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.datagen import DatagenConfig, generate_distillation_dataset
+    from repro_torch.data import mixed_batches, pack_documents, simple_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.training import finetune, make_train_state, train
+    from repro_torch.training.finetune import make_distill_step
+    B, S, steps = 4, 2048, 3
+    cfg = get_config("llama2-7b-chat")
+    target = Model(cfg, "cuda")
+    t_params = target.init(0)                            # bf16, frozen
+    draft = Model(cfg.drafter().replace(vocab_size=cfg.vocab_size), "cuda")
+    tc = TrainConfig(warmup_steps=2, total_steps=100)
+    state = make_train_state(draft, 1, tc)               # float32 master weights
+    V = cfg.vocab_size
+
+    t0 = time.perf_counter()
+    seeds = serve.make_prompts(8, 128, V, seed=7)
+    data = generate_distillation_dataset(
+        target, t_params, seeds,
+        DatagenConfig(temperatures=(0.0, 0.7), max_response_tokens=64),
+        gen=torch.Generator(device="cuda").manual_seed(0))
+    datagen_s = time.perf_counter() - t0
+    assert data.shape == (16, 128 + 64) and ((data >= 0) & (data < V)).all()
+    assert (data[:, :128] == np.tile(seeds, (2, 1))).all()
+    distill = pack_documents(data, S)
+    assert distill.shape == (1, S), distill.shape
+    pretrain = serve.make_prompts(8, S, V, seed=8)
+
+    t0 = time.perf_counter()
+    state, pre_hist = train(draft, state, simple_batches(pretrain, B, seed=0),
+                            tc, 2, log_every=1)
+    pretrain_s = time.perf_counter() - t0
+    assert all(math.isfinite(h["loss"]) for h in pre_hist), pre_hist
+
+    batches = mixed_batches(distill, pretrain, B, tc.distill_mix, seed=0)
+    t_sum = param_checksum(t_params)
+    d_before = param_checksum(state["params"])
+    marks = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, hist = finetune(draft, target, state, t_params, batches, tc, steps,
+                           "tvdpp", log_every=1, use_kernels=True,
+                           callback=lambda i, m: marks.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [1e3 * (b - a) for a, b in zip([t0] + marks[:-1], marks)]
+    steady_ms = sum(step_ms[1:]) / len(step_ms[1:])      # step 1 warms up
+    n = S // 512                                         # loss chunks per step
+    per_step = {"tree_attention": 0, "row_logsumexp": 6 * n,
+                "loss_terms": 3 * n, "loss_grad": n}
+    assert launches == {k: v * steps for k, v in per_step.items()}, launches
+    assert all(math.isfinite(h["loss"]) for h in hist), hist
+    assert param_checksum(t_params) == t_sum, "target parameters changed"
+    assert param_checksum(state["params"]) != d_before, "drafter did not move"
+
+    tokens = torch.as_tensor(next(batches), dtype=torch.long, device="cuda")
+    routes = compare_routes(draft, target, state["params"], t_params, tokens,
+                            loss_rtol=1e-4, grad_rtol=2e-2)
+    breakdown = profile_step(make_distill_step(draft, target, tc, "tvdpp",
+                                               use_kernels=True),
+                             state, t_params, tokens, steady_ms)
+    emit({"phase": 7, "arch": cfg.name, "drafter": draft.cfg.name,
+          "target_dtype": cfg.dtype, "drafter_param_dtype": draft.cfg.param_dtype,
+          "datagen": {"seeds": 8, "prompt_len": 128, "max_new": 64,
+                      "temperatures": [0.0, 0.7], "rows": int(data.shape[0]),
+                      "distill_chunks": int(distill.shape[0]), "s": datagen_s},
+          "pretrain": {"steps": 2, "batch": [B, S], "s": pretrain_s,
+                       "loss": [h["loss"] for h in pre_hist]},
+          "finetune": {"steps": steps, "batch": [B, S], "loss_kind": "tvdpp",
+                       "mix": tc.distill_mix, "step_ms": step_ms,
+                       "ms_per_step": steady_ms,
+                       "tokens_per_s": B * S / (steady_ms / 1e3),
+                       "peak_mem_gb": peak_gb,
+                       "loss": [h["loss"] for h in hist],
+                       "grad_norm": [h["grad_norm"] for h in hist]},
+          "launches": launches, "launches_per_step": per_step,
+          "kernel_vs_plain": routes, "where_the_time_goes": breakdown,
+          "nvidia_smi": smi})
+    assert routes["ok"], routes
+    return launches
+
+
+def phase8_float32_routes():
+    """One TVD++ step, kernel route against plain route, in float32 with
+    the target cut to 2 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.training import make_train_state
+    cfg = get_config("llama2-7b-chat").replace(num_layers=2, dtype="float32")
+    target = Model(cfg, "cuda")
+    t_params = target.init(0)
+    draft = Model(cfg.drafter().replace(vocab_size=cfg.vocab_size), "cuda")
+    state = make_train_state(draft, 1, TrainConfig())
+    tokens = torch.as_tensor(serve.make_prompts(4, 2048, cfg.vocab_size, seed=9),
+                             device="cuda")
+    routes = compare_routes(draft, target, state["params"], t_params, tokens,
+                            loss_rtol=1e-5, grad_rtol=1e-4)
+    emit({"phase": 8, "arch": cfg.name, "target_layers": 2, "dtype": "float32",
+          "batch": [4, 2048], "kernel_vs_plain": routes})
+    assert routes["ok"], routes
+
 
 def main():
     if not torch.cuda.is_available():
@@ -349,6 +742,12 @@ def main():
     del models
     torch.cuda.empty_cache()
     phase5_greedy_exactness()
+    torch.cuda.empty_cache()
+    timings.update(phase6_distill_kernels())
+    launches.update({k: v for k, v in phase7_training(smi).items()
+                     if k != "tree_attention"})
+    torch.cuda.empty_cache()
+    phase8_float32_routes()
     kernels = []
     for name, (route, source, replaces) in KERNEL_ROUTES.items():
         kernels.append({"name": name, "route": route, "source": source,

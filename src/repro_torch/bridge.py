@@ -44,12 +44,14 @@ def _convert(tree, device, dtype, name=None):
     return t.to(device=device, dtype=torch.float32 if name in _NORMS else dtype)
 
 
-def params_from_jax(np_tree, cfg: ModelConfig, device):
+def params_from_jax(np_tree, cfg: ModelConfig, device, dtype=None):
     """The port's parameters from the reference's (numpy) parameters.
 
     Layer i of the repeating pattern's k-th kind in repetition r is
     ``groups[k][name][r]``; layers follow in order r-major, then ``rem``.
-    Matmul weights are cast to ``cfg``'s compute dtype, norms stay float32.
+    Matmul weights are cast to ``dtype``: by default ``cfg``'s compute
+    dtype, as a served model holds them; a model to be trained passes its
+    ``param_dtype``. Norms stay float32.
     """
     if any(isinstance(k, str) and k.startswith("[") for k in np_tree):
         np_tree = _unflatten(np_tree)
@@ -70,7 +72,7 @@ def params_from_jax(np_tree, cfg: ModelConfig, device):
     layers.extend(rems)
     out = {k: v for k, v in np_tree.items() if k not in ("groups", "rem")}
     out["layers"] = layers
-    return _convert(out, torch.device(device), cfg.compute_dtype)
+    return _convert(out, torch.device(device), dtype or cfg.compute_dtype)
 
 
 def _leaves(tree):

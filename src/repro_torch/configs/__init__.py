@@ -5,7 +5,7 @@ from __future__ import annotations
 from typing import Dict
 
 from . import llama2_7b_chat
-from .base import ATTN, LOCAL_ATTN, ModelConfig  # noqa: F401
+from .base import ATTN, LOCAL_ATTN, ModelConfig, TrainConfig  # noqa: F401
 
 ARCHS: Dict[str, ModelConfig] = {
     "llama2-7b-chat": llama2_7b_chat.CONFIG,
@@ -36,4 +36,5 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         d_ff=0 if cfg.d_ff == 0 else 2 * d,
         vocab_size=min(cfg.vocab_size, 512),
         attn_chunk=32,
+        remat=False,
     )

@@ -1,8 +1,10 @@
-"""Model configuration for the port's dense, attention-only decoder.
+"""Model and training configuration for the port's dense, attention-only
+decoder.
 
-A copy of the fields of ``repro.configs.base.ModelConfig`` that the dense
-path reads; architectures that need the other fields (MoE, SSM, xLSTM,
-sliding windows, multi-codebook heads) wait for later slices of the port.
+``ModelConfig`` copies the fields of ``repro.configs.base.ModelConfig`` that
+the dense path reads; architectures that need the other fields (MoE, SSM,
+xLSTM, sliding windows, multi-codebook heads) wait for later slices of the
+port. ``TrainConfig`` is a copy of the reference's.
 """
 from __future__ import annotations
 
@@ -33,10 +35,13 @@ class ModelConfig:
     layer_pattern: Tuple[str, ...] = (ATTN,)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    # activation/compute dtype; matmul weights are held in it as well
-    # (models/layers.py), norm weights in float32
+    # activation/compute dtype; served models hold their matmul weights in
+    # it as well (models/layers.py), norm weights in float32
     dtype: str = "bfloat16"
-    attn_chunk: int = 512              # query chunk of prefill attention
+    param_dtype: str = "float32"       # weights of a model under training
+    opt_state_dtype: str = "float32"
+    remat: bool = True                 # checkpoint each layer in training
+    attn_chunk: int = 512              # query chunk of causal attention
     drafter_overrides: Optional[Tuple[Tuple[str, object], ...]] = None
 
     @property
@@ -66,3 +71,22 @@ class ModelConfig:
         over = dict(self.drafter_overrides or ())
         over.setdefault("name", self.name + "-drafter")
         return self.replace(**over)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer / schedule settings (paper §A.3)."""
+
+    learning_rate: float = 1e-4
+    min_learning_rate: float = 1e-6
+    warmup_steps: int = 5000
+    total_steps: int = 100_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    batch_size: int = 496
+    seq_len: int = 2048               # paper §A.4 chunk length
+    loss: str = "ce"                  # ce | kld | tvd | tvdpp (distill losses)
+    distill_mix: float = 0.9          # 9:1 distill:pretrain mixing (paper §2.3)

@@ -23,3 +23,61 @@ def ref_tree_attention(q, k, v, mask, softcap=None):
     s = torch.where(mask[:, None, :, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhngs,bshd->bhngd", p, v.float())
+
+
+# ----------------------------------------------------- distillation loss
+# The plain versions of csrc/distill_loss.cu. Like the kernels, they take
+# each row's logsumexp as an input and form p and q as exp(x - lse), so that
+# on the card the two differ only in the order of their sums. mu and
+# inv_sigma are 1-element tensors, as the kernels read them.
+
+def ref_logsumexp(x):
+    """(N, V) -> fp32 (N,): the row max m, then m + log(sum(exp(x - m)))."""
+    x = x.float()
+    m = x.amax(-1, keepdim=True)
+    return (m + torch.log(torch.exp(x - m).sum(-1, keepdim=True)))[:, 0]
+
+
+def _probs(x, lse):
+    return torch.exp(x.float() - lse[:, None])
+
+
+def _weight(mode, p, q, mu, inv_sigma):
+    if mode == "tvdpp":
+        return -((q > p).float() - mu) * inv_sigma
+    if mode == "tvd":
+        return 0.5 * torch.sign(p - q)
+    raise ValueError(mode)
+
+
+def ref_loss_terms(s, t, lse_s, lse_t, mu, inv_sigma, mode="tvdpp"):
+    """Per-row (loss, c = sum p*w, sum p*r, sum p*r^2), r = 1{q > p}; for
+    tvdpp the loss is c, for kld c is 0."""
+    p, q = _probs(s, lse_s), _probs(t, lse_t)
+    r = (q > p).float()
+    if mode == "kld":
+        lq = t.float() - lse_t[:, None]
+        lp = s.float() - lse_s[:, None]
+        loss = (q * (lq - lp)).sum(-1)
+        c = torch.zeros_like(loss)
+    else:
+        c = (p * _weight(mode, p, q, mu, inv_sigma)).sum(-1)
+        loss = c if mode == "tvdpp" else (0.5 * (q - p).abs()).sum(-1)
+    return loss, c, (p * r).sum(-1), (p * r * r).sum(-1)
+
+
+def ref_loss_grad(s, t, lse_s, lse_t, c, g_rows, mu, inv_sigma, mode="tvdpp"):
+    """dL/ds (N, V) fp32 given per-row cotangents: g * p * (w - c), or
+    g * (p - q) for kld."""
+    p, q = _probs(s, lse_s), _probs(t, lse_t)
+    g = g_rows[:, None]
+    if mode == "kld":
+        return g * (p - q)
+    return g * p * (_weight(mode, p, q, mu, inv_sigma) - c[:, None])
+
+
+def ref_distill_loss(mode, s, t, mask):
+    """Scalar loss: equals ``core.losses`` on the same inputs."""
+    from ..core import losses as L
+    fn = {"tvdpp": L.tvdpp, "tvd": L.tvd, "kld": L.kld}[mode]
+    return fn(s, t, mask)

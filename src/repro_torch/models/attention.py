@@ -1,10 +1,10 @@
-"""GQA attention: prefill (query-chunked causal) and decode against a KV
-cache, with the slots and ancestor masks of tree speculation
+"""GQA attention: training and prefill (query-chunked causal) and decode
+against a KV cache, with the slots and ancestor masks of tree speculation
 (``repro.models.attention``, dense unpaged path).
 
 Dispatch is the reference's: a tree-masked decode call goes to the tree
-attention kernel (``kernels.ops.tree_verify_attention``); prefill and every
-other decode call run the plain masked ``_sdpa``, as the reference runs
+attention kernel (``kernels.ops.tree_verify_attention``); training, prefill and
+every other decode call run the plain masked ``_sdpa``, as the reference runs
 them outside any Pallas kernel. Unlike the reference's ``S % 128`` rule,
 the kernel takes any cache width, so no tree call falls back to ``_sdpa``.
 
@@ -69,10 +69,10 @@ def _attend(q, k, v, mask, cfg, tree: bool):
     return _sdpa(q, k, v, mask, cfg)
 
 
-def prefill_attention(params, x, positions, cfg, cache_len: int):
-    """Causal attention over the prompt, scanned over query chunks of
-    ``cfg.attn_chunk``; returns (out, cache of ``cache_len`` slots in the
-    ring layout of ``decode_attention``)."""
+def _causal(params, x, positions, cfg):
+    """Causal self-attention of x, looped over query chunks of
+    ``cfg.attn_chunk`` (one chunk where the length is no multiple of it).
+    Returns (out after the output projection, k, v, kv positions (B, S))."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions)
     kv_pos = positions if positions.dim() == 2 else positions[None].expand(B, S)
@@ -84,7 +84,19 @@ def prefill_attention(params, x, positions, cfg, cache_len: int):
         m = kv_pos[:, i:i + C, None] >= kv_pos[:, None, :]
         outs.append(_sdpa(q[:, i:i + C], k, v, m, cfg))
     out = torch.cat(outs, dim=1).reshape(B, S, cfg.num_heads * cfg.head_dim_)
-    out = matmul_param(out, params["wo"])
+    return matmul_param(out, params["wo"]), k, v, kv_pos
+
+
+def causal_attention(params, x, positions, cfg):
+    """Full-sequence causal attention of training: no cache."""
+    return _causal(params, x, positions, cfg)[0]
+
+
+def prefill_attention(params, x, positions, cfg, cache_len: int):
+    """Causal attention over the prompt; returns (out, cache of
+    ``cache_len`` slots in the ring layout of ``decode_attention``)."""
+    B, S, _ = x.shape
+    out, k, v, kv_pos = _causal(params, x, positions, cfg)
 
     dt = cfg.compute_dtype
     shape = (B, cache_len, cfg.num_kv_heads, cfg.head_dim_)

@@ -1,11 +1,14 @@
 """Core building blocks on tensors: matmul dispatch, RMSNorm, RoPE, SwiGLU,
 embeddings and the LM head (``repro.models.layers``).
 
-Matmul weights are held in the compute dtype. The reference keeps them in
-``param_dtype`` (float32) and casts each 2-D weight to the activation dtype
-at every matmul, so holding the cast copy gives every matmul the same
-values, and the 7B target takes 13.5 GB on the card instead of 27 GB. Norm
-weights stay float32: ``rms_norm`` reads them in float32.
+The reference keeps matmul weights in ``param_dtype`` (float32) and casts
+each 2-D weight to the activation dtype at every matmul (``matmul_param``).
+A served model holds them in the compute dtype instead: the cast copy gives
+every matmul the same values, and the 7B target takes 13.5 GB on the card
+instead of 27 GB. A model under training keeps float32 master weights, as
+the reference does: between 0.031 and 0.0625 bf16's spacing is 2.4e-4, so
+an AdamW step of 1e-4 there would round away. Norm weights stay float32:
+``rms_norm`` reads them in float32.
 """
 from __future__ import annotations
 

@@ -9,6 +9,7 @@ Only the ``attn`` layer kind is ported.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN
 from . import attention as attn_mod
@@ -26,11 +27,12 @@ def _check_pattern(cfg):
         raise ValueError(f"{cfg.name}: the port needs an FFN (d_ff > 0)")
 
 
-def init_params(gen, cfg, device):
+def init_params(gen, cfg, device, dtype=None):
     """Seeded random parameters drawn from ``gen`` on ``device``: matmul
-    weights in the compute dtype, norm weights in float32 (zeros)."""
+    weights in ``dtype`` (default: the compute dtype, for serving; training
+    passes ``cfg.param_dtype``), norm weights in float32 (zeros)."""
     _check_pattern(cfg)
-    wdt = cfg.compute_dtype
+    wdt = dtype or cfg.compute_dtype
     d, hd, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
 
     def norm():
@@ -66,16 +68,38 @@ def init_cache(cfg, batch, max_len, device):
             for _ in range(cfg.num_layers)]
 
 
+def _train_layer(lp, x, positions, cfg):
+    x = x + attn_mod.causal_attention(lp["attn"], rms_norm(x, lp["norm1"],
+                                                           cfg.norm_eps),
+                                      positions, cfg)
+    return x + swiglu(lp["mlp"], rms_norm(x, lp["norm2"], cfg.norm_eps))
+
+
 def backbone(params, tokens, cfg, mode, positions=None, cache=None,
              cache_len=0, slots=None, attn_mask=None):
-    """tokens: (B, S) int. ``mode`` is "prefill" (builds caches of
-    ``cache_len`` slots) or "decode" (writes into ``cache``).
-    Returns (hidden (B, S, D) after the final norm, caches)."""
+    """tokens: (B, S) int. ``mode`` is "train" (no caches), "prefill"
+    (builds caches of ``cache_len`` slots) or "decode" (writes into
+    ``cache``). Returns (hidden (B, S, D) after the final norm, caches;
+    None in training).
+
+    In training with ``cfg.remat``, each layer runs under
+    ``torch.utils.checkpoint`` while gradients are recorded, so backward
+    recomputes its activations (the reference's ``jax.checkpoint`` of the
+    layer scan)."""
     x = embed_tokens(params["embed"], tokens).to(cfg.compute_dtype)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
+    if mode == "train":
+        remat = cfg.remat and torch.is_grad_enabled()
+        for lp in params["layers"]:
+            if remat:
+                x = checkpoint(_train_layer, lp, x, positions, cfg,
+                               use_reentrant=False)
+            else:
+                x = _train_layer(lp, x, positions, cfg)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), None
     caches = []
     for i, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
