@@ -29,10 +29,30 @@ Phases, each printing one JSON line:
      steps and 3 TVD++ steps on 4 x 2048 tokens through the kernels, with
      the launch counts asserted, and one step of the kernel route is held
      against the plain route;
-  8. the same comparison in float32 with 2 target layers.
-Then the ``kernels`` line, the card's name and power limit as nvidia-smi
-gives them, and last ``{"ok": true, "device": ...}``. Any failure raises
-and ends the run with a non-zero exit code and no result line.
+  8. the same comparison in float32 with 2 target layers;
+  9. the quantized matmul (int8, and int4 with group 64) against its plain
+     version within 1e-4 of the output's scale, at every (K, N) of the
+     quantized target and drafter and every M phase 10 gives it (4, 8, 16,
+     28 and 512), x in bf16 and float32, with and without an AWQ
+     pre-scale, and at a ragged shape; then its times at the target's
+     shapes at M 16, 28 and 512 beside their bounds, the plain version's,
+     the library call's that computes the same function with bf16 scales
+     (torch._weight_int8pack_mm, torch._weight_int4pack_mm; held against
+     the plain version first), and cuBLAS's bf16 matmul on the unquantized
+     weight;
+ 10. full-width quantized serving: Llama-2-7B-Chat and its drafter drawn in
+     float32, AWQ-calibrated on datagen batches of the target, quantized to
+     int8 and then to int4 weights, with int8 KV caches; tree (2, 2) and
+     chain (gamma 3) at temperature 0.7, the launch counts asserted (each
+     forward pass of a quantized model launches the kernel 7 * layers + 1
+     times);
+ 11. greedy exactness under int8 and int4 weights with 2 target layers in
+     float32: tree and chain tokens must equal the quantized target's
+     greedy tokens.
+Phases 10 and 11 run before phase 9. Then the ``kernels`` line, the
+card's name and power limit as nvidia-smi gives them, and last ``{"ok":
+true, "device": ...}``. Any failure raises and ends the run with a
+non-zero exit code and no result line.
 """
 import contextlib
 import json
@@ -53,12 +73,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense, 700 W
 # set by the working type
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DISTILL_CU = "src/repro_torch/kernels/csrc/distill_loss.cu"
+QUANT_CU = "src/repro_torch/kernels/csrc/quant_matmul.cu"
 KERNEL_ROUTES = {   # name -> (route, source, TPU kernel it replaces)
     "tree_attention": ("cuda", "src/repro_torch/kernels/csrc/tree_attention.cu",
                        "src/repro/kernels/tree_attention.py:85"),
     "row_logsumexp": ("cuda", DISTILL_CU, "src/repro/kernels/distill_loss.py:78"),
     "loss_terms": ("cuda", DISTILL_CU, "src/repro/kernels/distill_loss.py:148"),
     "loss_grad": ("cuda", DISTILL_CU, "src/repro/kernels/distill_loss.py:185"),
+    "quant_matmul_int8": ("cuda", QUANT_CU, "src/repro/kernels/quant_matmul.py:131"),
+    "quant_matmul_int4": ("cuda", QUANT_CU, "src/repro/kernels/quant_matmul.py:131"),
 }
 
 
@@ -282,6 +305,7 @@ def profile_tree(models, prompts, sdc, spec, wall_ms_per_round):
             "wall_ms_per_round_unprofiled": wall_ms_per_round,
             "device_busy_share": per_round_ms / wall_ms_per_round,
             "share_tree_attention": share(lambda k: "tree_attention" in k),
+            "share_quant_matmul": share(lambda k: "quant_matmul" in k),
             # cuBLAS matmuls: nvjet_* (its JIT kernels), *gemm*, *xmma*
             "share_matmul": share(lambda k: any(w in k.lower() for w in
                                                 ("nvjet", "gemm", "xmma"))),
@@ -670,7 +694,8 @@ def phase7_training(smi):
     steady_ms = sum(step_ms[1:]) / len(step_ms[1:])      # step 1 warms up
     n = S // 512                                         # loss chunks per step
     per_step = {"tree_attention": 0, "row_logsumexp": 6 * n,
-                "loss_terms": 3 * n, "loss_grad": n}
+                "loss_terms": 3 * n, "loss_grad": n, "quant_matmul_int8": 0,
+                "quant_matmul_int4": 0}
     assert launches == {k: v * steps for k, v in per_step.items()}, launches
     assert all(math.isfinite(h["loss"]) for h in hist), hist
     assert param_checksum(t_params) == t_sum, "target parameters changed"
@@ -725,6 +750,377 @@ def phase8_float32_routes():
     assert routes["ok"], routes
 
 
+# ------------------------------------------------ quantized serving (9-11)
+
+QUANT_SHAPES = {    # (label, K, N) of every quantized matmul of the path
+    "target": [("wq/wk/wv/wo", 4096, 4096), ("w_gate/w_up", 4096, 11008),
+               ("w_down", 11008, 4096), ("lm_head", 4096, 32000)],
+    "drafter": [("wq/wk/wv/wo", 1024, 1024), ("w_gate/w_up", 1024, 2816),
+                ("w_down", 2816, 1024), ("lm_head", 1024, 32000)]}
+QUANT_B, QUANT_P, QUANT_TREE, QUANT_GAMMA = 4, 128, (2, 2), 3   # phase 10
+
+
+def quant_pass_rows(B=QUANT_B, P=QUANT_P, branching=QUANT_TREE, gamma=QUANT_GAMMA):
+    """The M of every quantized matmul phase 10 runs: the drafter's tree
+    levels (B x 1, 2, 4 nodes) and chain steps (B), the chain verify
+    (B x (gamma + 1)), the tree verify (B x 7 nodes) and both prefills
+    (B x P)."""
+    from repro_torch.spectree.tree import TreeSpec
+    spec = TreeSpec(branching)
+    return tuple(sorted({B * n for n in spec.level_sizes}
+                        | {B, B * (gamma + 1), B * spec.num_nodes, B * P}))
+
+
+QUANT_GROUP = 64
+# kernel vs plain version, relative to the output's scale, for x in either
+# dtype: both widen x to fp32 and sum fp32 products, so they differ only in
+# the order of the sums (4.1e-6 at most on an H100); a kernel that formed
+# its products in bf16 would be off by about 1e-3
+QUANT_TOL = 1e-4
+# a library call against the plain version: it rounds the scales and its
+# output to bf16
+LIBRARY_TOL = 2e-2
+QUANT_TIMING_SET_BYTES = 150e6      # weights per timed rotation, > 50 MB L2
+
+
+def quant_weight(gen, K, N, bits, awq):
+    """A random (K, N) weight quantized on the card (group 64 for int4),
+    with an AWQ pre-scale from random activation magnitudes if ``awq``."""
+    from repro_torch.quant import quantize_weight
+    w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
+    amax = None
+    if awq:
+        amax = (torch.rand((K,), generator=gen, device="cuda") * 4 + 0.1).cpu().numpy()
+    return quantize_weight(w, bits=bits, group=QUANT_GROUP, act_amax=amax)
+
+
+def check_quant_case(x, qw):
+    """The kernel against its plain version on the same (pre-scaled) x;
+    returns (max abs error, tolerance, ok): QUANT_TOL relative to the
+    output's scale."""
+    from repro_torch.kernels import quant_matmul as qk
+    from repro_torch.kernels import ref
+    xm = x if qw.pre is None else x * qw.pre[None, :].to(x.dtype)
+    got = qk.quant_matmul(xm, qw.q, qw.scale, qw.bits, qw.group)
+    want = ref.ref_quant_matmul(xm, qw.q, qw.scale, qw.bits, qw.group)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = QUANT_TOL * max(1.0, want.abs().max().item())
+    return err, tol, bool(torch.isfinite(got).all()) and err <= tol
+
+
+def int4pack_weight(q, inner_k_tiles=8):
+    """The port's int4 layout, q (K/2, N) with two's-complement nibbles,
+    in torch._weight_int4pack_mm's: unsigned nibbles u = s + 8 (the nibble
+    with its top bit flipped) of w (N, K), even K in the high nibble, then
+    tiled by torch._convert_weight_to_int4pack."""
+    even = (q & 0xF) ^ 8
+    odd = (q >> 4) ^ 8
+    packed = ((even << 4) | odd).t().contiguous()
+    return torch._convert_weight_to_int4pack(packed, inner_k_tiles)
+
+
+def int4pack_scales(scale):
+    """(K/group, N) fp32 scales as _weight_int4pack_mm's (K/group, N, 2)
+    bf16 scales and zero points; with zero points 0 it computes
+    x @ ((u - 8) * scale) per group, the port's s * scale."""
+    return torch.stack([scale, torch.zeros_like(scale)], -1).bfloat16().contiguous()
+
+
+def library_call(bits, q, scale):
+    """(weights in the library's layout, fn(x, weights)) of the one PyTorch
+    call that computes x @ dequant(q, scale) on bf16 x with bf16 scales."""
+    if bits == 8:
+        # x (M, K) @ (w (N, K) int8 * scales (N,))
+        wts = (q.t().contiguous(), scale[0].bfloat16())
+        return wts, lambda x, w: torch._weight_int8pack_mm(x, *w)
+    wts = (int4pack_weight(q), int4pack_scales(scale))
+    return wts, lambda x, w: torch._weight_int4pack_mm(x, w[0], QUANT_GROUP, w[1])
+
+
+def quant_bound_ms(M, K, N, bits, x_dtype=torch.bfloat16):
+    """Least time for the card: x, q and the scales read once, the fp32
+    output written once, against 2*M*K*N operations at x's type's peak."""
+    x_bytes = M * K * torch.tensor([], dtype=x_dtype).element_size()
+    if bits == 8:
+        w_bytes = K * N + N * 4
+    else:
+        w_bytes = K * N // 2 + (K // QUANT_GROUP) * N * 4
+    t_bytes = (x_bytes + w_bytes + M * N * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * M * K * N / PEAK_FLOPS[x_dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_quant_shape(gen, K, N, bits, Ms=(16, 28, 512)):
+    """Device times at one target shape: the kernel, its plain version, the
+    library call that computes the same function (at the decode shapes;
+    torch._weight_int8pack_mm or torch._weight_int4pack_mm, bf16 scales),
+    and cuBLAS's bf16 matmul on an unquantized weight of the same shape,
+    each over enough weight sets to exceed the L2. The library call is
+    first held against the plain version. M 512 (prefill) is bound by
+    operations and slow on the CUDA cores: 10 calls a graph."""
+    from repro_torch.kernels import quant_matmul as qk
+    from repro_torch.kernels import ref
+    qbytes = K * N if bits == 8 else K * N // 2
+    n_q = max(2, math.ceil(QUANT_TIMING_SET_BYTES / qbytes))
+    n_w = max(2, math.ceil(QUANT_TIMING_SET_BYTES / (2 * K * N)))
+    if bits == 8:
+        qs = [torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in range(n_q)]
+        scales = [torch.rand((1, N), generator=gen, device="cuda") / 127
+                  for _ in range(n_q)]
+    else:
+        qs = [torch.randint(0, 256, (K // 2, N), generator=gen, device="cuda",
+                            dtype=torch.uint8) for _ in range(n_q)]
+        scales = [torch.rand((K // QUANT_GROUP, N), generator=gen, device="cuda") / 7
+                  for _ in range(n_q)]
+    ws = [torch.randn((K, N), generator=gen, device="cuda").bfloat16()
+          for _ in range(n_w)]
+    lib = [library_call(bits, q, s) for q, s in zip(qs, scales)]
+    lib_fn = lib[0][1]
+    x = torch.randn((28, K), generator=gen, device="cuda").bfloat16()
+    want = ref.ref_quant_matmul(x, qs[0], scales[0], bits, QUANT_GROUP)
+    lib_err = (lib_fn(x, lib[0][0]).float() - want).abs().max().item()
+    lib_tol = LIBRARY_TOL * want.abs().max().item()
+    assert lib_err <= lib_tol, (f"int{bits} library call disagrees with the "
+                                f"plain version", K, N, lib_err, lib_tol)
+    out = {}
+    for M in Ms:
+        xs = [torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+              for _ in range(max(n_q, n_w))]
+        it = iter(range(10 ** 9))
+
+        def rotate(fn, n):
+            return lambda: fn(next(it) % n)
+
+        fns = {"kernel": (lambda i: qk.quant_matmul(xs[i], qs[i], scales[i], bits,
+                                                    QUANT_GROUP), n_q),
+               "plain": (lambda i: ref.ref_quant_matmul(xs[i], qs[i], scales[i],
+                                                        bits, QUANT_GROUP), n_q),
+               "cublas_bf16": (lambda i: xs[i] @ ws[i], n_w)}
+        if M <= 28:
+            fns["library"] = (lambda i: lib_fn(xs[i], lib[i][0]), n_q)
+        iters = 10 if M > 28 else 50
+        dev = {name: graph_ms(rotate(fn, n), iters=iters)
+               for name, (fn, n) in fns.items()}
+        dev["kernel_repeat"] = graph_ms(rotate(*fns["kernel"]), iters=iters)
+        bound_ms, bound_by = quant_bound_ms(M, K, N, bits)
+        out[M] = {"device_ms": dev, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "weight_sets": n_q}
+    out["library"] = {"call": f"torch._weight_int{bits}pack_mm",
+                      "max_abs_err_vs_plain": lib_err, "tol": lib_tol,
+                      "timed_at": [M for M in Ms if M <= 28]}
+    return out
+
+
+def phase9_quant_kernels():
+    """The quantized matmul against its plain version in every case (every
+    (K, N) of both models at every M of phase 10), then its device times at
+    the target's shapes at M 16, 28 and 512."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = quant_pass_rows()
+    shapes = [("ragged", 192, 1001, (5,))] + [
+        (f"{model}:{name}", K, N, rows)
+        for model, lst in QUANT_SHAPES.items() for name, K, N in lst]
+    worst, worst_m, errs, n_cases = {}, {}, {}, 0
+    for label, K, N, Ms in shapes:
+        for bits in (8, 4):
+            for awq in (False, True):
+                qw = quant_weight(gen, K, N, bits, awq)
+                for M in Ms:
+                    x = torch.randn((M, K), generator=gen, device="cuda")
+                    for dtype in (torch.bfloat16, torch.float32):
+                        err, tol, ok = check_quant_case(x.to(dtype), qw)
+                        n_cases += 1
+                        key = (bits, str(dtype).split(".")[-1])
+                        rel = err / tol * QUANT_TOL
+                        worst[key] = max(worst.get(key, 0.0), rel)
+                        worst_m[M] = max(worst_m.get(M, 0.0), rel)
+                        errs[(label, bits, awq, M, dtype)] = err
+                        if not ok:
+                            emit({"phase": 9, "failed_case": {
+                                "shape": label, "M": M, "K": K, "N": N, "bits": bits,
+                                "awq": awq, "dtype": str(dtype), "max_abs_err": err,
+                                "tol": tol}})
+                            raise AssertionError("quant_matmul disagrees with its "
+                                                 "plain version")
+                del qw
+    timing = {f"int{bits}:{name}": time_quant_shape(gen, K, N, bits)
+              for name, K, N in QUANT_SHAPES["target"] for bits in (8, 4)}
+    emit({"phase": 9, "cases": n_cases, "all_ok": True, "M": rows,
+          "worst_rel_err": {f"int{b}/{d}": e for (b, d), e in worst.items()},
+          "worst_rel_err_by_M": worst_m, "tolerance_rel": QUANT_TOL,
+          "timing_note": "device ms per call, CUDA graph of 50 calls (M 512: 10), "
+                         "x bf16; library and cuBLAS give bf16 outputs",
+          "timing": timing})
+    torch.cuda.empty_cache()
+    out = {}
+    for bits in (8, 4):       # the kernels line: wq at M 28 (the tree verify)
+        t = timing[f"int{bits}:wq/wk/wv/wo"][28]
+        dev = t["device_ms"]
+        out[f"quant_matmul_int{bits}"] = {
+            "max_abs_err": errs[("target:wq/wk/wv/wo", bits, True, 28, torch.bfloat16)],
+            "ms": dev["kernel"], "plain_ms": dev["plain"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": dev.get("library")}
+    return out
+
+
+def quant_passes(cfg) -> int:
+    """Quantized matmul launches per forward pass: 7 per layer + lm head."""
+    return 7 * cfg.num_layers + 1
+
+
+def phase10_quant_serving(smi, weights):
+    """Full-width serving with quantized target and drafter and int8 KV
+    caches: tree (2, 2), then chain gamma 3, temperature 0.7."""
+    from repro_torch.configs import QuantConfig
+    from repro_torch.core import speculative as tspec
+    from repro_torch.core.metrics import mbsu
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.quant import decode_step_bytes, params_nbytes
+    from repro_torch.spectree.tree import TreeSpec
+    bits = {"int8": 8, "int4": 4}[weights]
+    key = f"quant_matmul_int{bits}"
+    B, P, NEW = QUANT_B, QUANT_P, 64
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = serve.build_models("llama2-7b-chat", False, "cuda",
+                                QuantConfig(weights=weights, group_size=QUANT_GROUP),
+                                quant_target=True, calib_seqs=4, calib_len=P)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    target, t_params, draft, d_params, c = models
+    stored = {"target": params_nbytes(t_params), "drafter": params_nbytes(d_params)}
+    modeled = {name: dict(zip(("weight", "scale", "kv", "total"),
+                              decode_step_bytes(m.cfg, B, P + NEW, weights, "int8",
+                                                QUANT_GROUP).row()))
+               for name, m in (("target", target), ("drafter", draft))}
+    spec = TreeSpec(QUANT_TREE)
+    sdc = tspec.SDConfig(gamma=QUANT_GAMMA, temperature=0.7, kv_quant=True)
+    prompts = serve.make_prompts(B, P, target.cfg.vocab_size)
+    prompt = torch.as_tensor(prompts, device="cuda")
+    st = tspec._prefill_state(draft, target, d_params, t_params, prompt,
+                              P + NEW + 9, sdc, torch.Generator(device="cuda"))
+    kv_dtypes = sorted({str(layer[n].dtype) for c_ in (st["t_cache"], st["d_cache"])
+                        for layer in c_ for n in ("k", "v")})
+    assert kv_dtypes == ["torch.int8"], kv_dtypes
+    del st
+    pt, pd = quant_passes(target.cfg), quant_passes(draft.cfg)
+
+    serve.serve_tree(target, t_params, draft, d_params, prompts, 8, sdc, spec, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    toks, stats = serve.serve_tree(target, t_params, draft, d_params, prompts,
+                                   NEW, sdc, spec)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tree_launches = dict(ops.LAUNCHES)
+    R = stats.rounds
+    want = {k: 0 for k in ops.LAUNCHES}
+    want["tree_attention"] = R * (target.cfg.num_layers
+                                  + draft.cfg.num_layers * (spec.depth + 1))
+    want[key] = (1 + R) * pt + (1 + (spec.depth + 1) * R) * pd
+    assert R > 0 and tree_launches == want, (tree_launches, want)
+    new = toks[:, P:P + NEW]
+    assert bool(((new >= 0) & (new < target.cfg.vocab_size)).all()), "token out of vocab"
+    assert stats.tau >= 1.0 and math.isfinite(stats.tau), stats.tau
+    breakdown = profile_tree(models, prompts, sdc, spec, stats.wall_time_s * 1e3 / R)
+    # the profiled run holds one prefill of each model (M 512 through the
+    # kernel): its device time apart, and the rounds' without it
+    prefill_ms = {name: cuda_ms(lambda m=m, p=p: m.prefill(p, prompt, cache_len=P + NEW + 9),
+                                iters=3, warmup=1)
+                  for name, m, p in (("target", target, t_params),
+                                     ("drafter", draft, d_params))}
+    if breakdown.get("profiled_rounds"):
+        breakdown["device_ms_per_round_without_prefill"] = (
+            breakdown["device_ms_per_round"]
+            - sum(prefill_ms.values()) / breakdown["profiled_rounds"])
+
+    serve.serve_static(target, t_params, draft, d_params, prompts, 8, sdc, seed=1)
+    ops.reset_launches()
+    results, tau, tok_s = serve.serve_static(target, t_params, draft, d_params,
+                                             prompts, NEW, sdc)
+    chain_launches = dict(ops.LAUNCHES)
+    Rc = results[0].rounds
+    want_c = {k: 0 for k in ops.LAUNCHES}
+    want_c[key] = (1 + Rc) * pt + (1 + (sdc.gamma + 1) * Rc) * pd
+    assert Rc > 0 and chain_launches == want_c, (chain_launches, want_c)
+    for r in results:
+        assert len(r.tokens) == NEW and ((r.tokens >= 0)
+                                         & (r.tokens < target.cfg.vocab_size)).all()
+    assert tau >= 1.0 and math.isfinite(tau), tau
+    emit({"phase": 10, "weights": weights, "group": QUANT_GROUP, "kv": "int8",
+          "quantized": ["target", "drafter"], "awq_calib": {"seqs": 4, "prompt_len": P,
+                                                            "temperatures": [0.0, 0.7],
+                                                            "response": 16},
+          "build_s": build_s, "build_peak_gb": build_peak_gb,
+          "prefill_ms": prefill_ms,
+          "stored_bytes": stored, "modeled_decode_step_bytes": modeled,
+          "tree": {"branching": spec.branching, "rounds": R, "tau": stats.tau,
+                   "mbsu": mbsu(stats.tau, c, spec.depth), "tok_s": stats.tokens_per_s(),
+                   "wall_s": stats.wall_time_s, "launches": tree_launches,
+                   "peak_mem_gb": peak_gb, "where_the_time_goes": breakdown},
+          "chain": {"gamma": sdc.gamma, "rounds": Rc, "tau": tau,
+                    "mbsu": mbsu(tau, c, sdc.gamma), "tok_s": tok_s,
+                    "launches": chain_launches,
+                    "note": "tok/s over each batch's wall time, prefill included"},
+          "launches_per_pass": {"target": pt, "drafter": pd},
+          "c": c, "requests": B, "prompt_len": P, "max_new": NEW,
+          "temperature": 0.7, "nvidia_smi": smi})
+    return tree_launches[key] + chain_launches[key]
+
+
+def phase11_quant_greedy_exactness():
+    """Temperature 0 with quantized weights (target cut to 2 layers, float32,
+    KV in float): tree and chain tokens must equal the quantized target's
+    greedy tokens."""
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.core.speculative import (SDConfig, autoregressive_generate,
+                                              speculative_generate)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.quant import quantize_params
+    from repro_torch.spectree.round import tree_speculative_generate
+    from repro_torch.spectree.tree import TreeSpec
+    cfg = get_config("llama2-7b-chat").replace(num_layers=2, dtype="float32")
+    P, M = 64, 32
+    prompt = torch.as_tensor(serve.make_prompts(2, P, cfg.vocab_size, seed=5),
+                             device="cuda")
+    sdc = SDConfig(gamma=3, temperature=0.0)
+    spec = TreeSpec((2, 2))
+    out = {}
+    for weights in ("int8", "int4"):
+        target = Model(cfg, "cuda")
+        draft = Model(cfg.drafter(), "cuda")
+        t_fp = target.init(0, dtype=torch.float32)
+        d_fp = draft.init(1, dtype=torch.float32)
+        calib = serve.calibration_tokens(target, t_fp, 2, 32)
+        qcfg = QuantConfig(weights=weights, group_size=QUANT_GROUP)
+        t_params = quantize_params(target, t_fp, qcfg, calib_tokens=calib)
+        d_params = quantize_params(draft, d_fp, qcfg, calib_tokens=calib)
+        del t_fp, d_fp
+        ops.reset_launches()
+        ar, _ = autoregressive_generate(target, t_params, prompt, M, temperature=0.0)
+        chain, _ = speculative_generate(draft, target, d_params, t_params, prompt,
+                                        M, sdc)
+        tree, tstats = tree_speculative_generate(draft, target, d_params, t_params,
+                                                 prompt, M, sdc, spec)
+        launches = dict(ops.LAUNCHES)
+        ok_chain = torch.equal(chain[:, :P + M], ar)
+        ok_tree = torch.equal(tree[:, :P + M], ar)
+        out[weights] = {"chain_equals_ar": ok_chain, "tree_equals_ar": ok_tree,
+                        "tree_rounds": tstats.rounds, "tree_tau": tstats.tau,
+                        "launches": launches}
+        assert ok_chain and ok_tree, (weights, "speculative greedy tokens differ from AR")
+        assert launches[f"quant_matmul_int{4 if weights == 'int4' else 8}"] > 0
+    emit({"phase": 11, "arch": cfg.name, "target_layers": 2, "dtype": "float32",
+          "kv": "float", "temperature": 0.0, "results": out})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -748,6 +1144,15 @@ def main():
                      if k != "tree_attention"})
     torch.cuda.empty_cache()
     phase8_float32_routes()
+    torch.cuda.empty_cache()
+    # phase 9 runs last: after its M 512 timings the host dispatched phase
+    # 10's rounds 1.7 times slower on an H100 host (PERF.md)
+    for weights in ("int8", "int4"):
+        launches[f"quant_matmul_{weights}"] = phase10_quant_serving(smi, weights)
+        torch.cuda.empty_cache()
+    phase11_quant_greedy_exactness()
+    torch.cuda.empty_cache()
+    timings.update(phase9_quant_kernels())
     kernels = []
     for name, (route, source, replaces) in KERNEL_ROUTES.items():
         kernels.append({"name": name, "route": route, "source": source,

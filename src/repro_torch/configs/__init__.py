@@ -5,7 +5,8 @@ from __future__ import annotations
 from typing import Dict
 
 from . import llama2_7b_chat
-from .base import ATTN, LOCAL_ATTN, ModelConfig, TrainConfig  # noqa: F401
+from .base import (ATTN, LOCAL_ATTN, ModelConfig, QuantConfig,  # noqa: F401
+                   TrainConfig)
 
 ARCHS: Dict[str, ModelConfig] = {
     "llama2-7b-chat": llama2_7b_chat.CONFIG,

@@ -4,7 +4,7 @@ decoder.
 ``ModelConfig`` copies the fields of ``repro.configs.base.ModelConfig`` that
 the dense path reads; architectures that need the other fields (MoE, SSM,
 xLSTM, sliding windows, multi-codebook heads) wait for later slices of the
-port. ``TrainConfig`` is a copy of the reference's.
+port. ``TrainConfig`` and ``QuantConfig`` are copies of the reference's.
 """
 from __future__ import annotations
 
@@ -56,6 +56,17 @@ class ModelConfig:
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    def param_count(self) -> int:
+        """Analytic parameter count of the dense attention-only decoder
+        (``repro``'s ``param_count`` on the fields the port has)."""
+        d, hd = self.d_model, self.head_dim_
+        emb = self.vocab_size * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        qkv = (d * (self.num_heads + 2 * self.num_kv_heads) * hd
+               + self.num_heads * hd * d)
+        per_layer = qkv + 3 * d * self.d_ff + 2 * d
+        return emb + head + d + self.num_layers * per_layer
+
     def pattern_blocks(self) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
         """Return (repeating group, group count, remainder kinds)."""
         g = self.layer_pattern
@@ -90,3 +101,29 @@ class TrainConfig:
     seq_len: int = 2048               # paper §A.4 chunk length
     loss: str = "ce"                  # ce | kld | tvd | tvdpp (distill losses)
     distill_mix: float = 0.9          # 9:1 distill:pretrain mixing (paper §2.3)
+
+
+@dataclass(frozen=True)
+class QuantConfig:
+    """Post-training quantization settings (``repro_torch.quant``).
+
+    ``weights``: None (full precision) | "int8" (per-out-channel absmax) |
+    "int4" (grouped absmax, ``group_size`` input channels per scale).
+    ``awq``: apply the AWQ-lite activation-aware pre-scale when calibration
+    data is provided. KV-cache quantization is a choice of cache layout,
+    not a transform of the parameters, so it lives where caches are built:
+    ``SDConfig.kv_quant`` and ``init_cache(kv_quant=)``.
+    """
+
+    weights: Optional[str] = None      # None | "int8" | "int4"
+    group_size: int = 64               # int4 scale group along the in-dim
+    awq: bool = True
+    awq_alpha: float = 0.5
+
+    def __post_init__(self):
+        if self.weights not in (None, "int8", "int4"):
+            raise ValueError(f"unsupported weights mode {self.weights!r}")
+
+    @property
+    def bits(self) -> int:
+        return {None: 0, "int8": 8, "int4": 4}[self.weights]

@@ -30,6 +30,7 @@ import torch
 
 from ..configs.base import ATTN, LOCAL_ATTN
 from ..models.model import Model
+from ..quant.kvcache import quantize_kv_cache
 from .metrics import SDStats
 from .sampling import probs_from_logits, residual_sample, sample_from_probs
 
@@ -51,6 +52,9 @@ class SDConfig:
     gamma: int = 3
     temperature: float = 1.0
     top_p: float = 1.0
+    # int8 KV caches for both models (quant.kvcache): the prefill caches are
+    # converted once, decode writes quantized entries directly
+    kv_quant: bool = False
 
 
 def _pick(noise, name, i=None):
@@ -165,10 +169,14 @@ def sd_round(draft: Model, target: Model, sdc: SDConfig, d_params, t_params,
 def _prefill_state(draft: Model, target: Model, d_params, t_params, prompt,
                    max_total, sdc: SDConfig, gen, noise=None):
     """Prefill both models and sample the first pending token (``noise``:
-    its (B, V) Gumbel noise)."""
+    its (B, V) Gumbel noise). With ``sdc.kv_quant`` both caches are then
+    converted to the int8 layout; chain and tree rounds share this."""
     B, S = prompt.shape
     lg_t, t_cache = target.prefill(t_params, prompt, cache_len=max_total)
     _, d_cache = draft.prefill(d_params, prompt, cache_len=max_total)
+    if sdc.kv_quant:
+        t_cache = quantize_kv_cache(t_cache)
+        d_cache = quantize_kv_cache(d_cache)
     q0 = probs_from_logits(lg_t[:, 0], sdc.temperature, sdc.top_p)
     pending = sample_from_probs(q0, gen, noise)
     tokens = torch.zeros((B, max_total + sdc.gamma + 2), dtype=torch.long,

@@ -1,5 +1,6 @@
-"""Public wrappers over the port's kernels (``repro.kernels.ops``), and
-the fused distillation loss assembled from three of them.
+"""Public wrappers over the port's kernels (``repro.kernels.ops``): tree
+attention, the quantized matmul, and the fused distillation loss assembled
+from three kernels.
 
 Each wrapper runs the kernel's plain version for tensors that lie on the
 CPU, and for CUDA tensors launches the kernel or raises: nothing on the
@@ -12,11 +13,12 @@ from __future__ import annotations
 import torch
 
 from . import distill_loss as dk
+from . import quant_matmul as qk
 from . import ref
 from . import tree_attention as tk
 
 LAUNCHES = {"tree_attention": 0, "row_logsumexp": 0, "loss_terms": 0,
-            "loss_grad": 0}
+            "loss_grad": 0, "quant_matmul_int8": 0, "quant_matmul_int4": 0}
 
 
 def reset_launches() -> None:
@@ -33,6 +35,26 @@ def tree_verify_attention(q, k, v, mask, softcap=None):
     out = tk.tree_attention(q, k, v, mask, softcap)
     LAUNCHES["tree_attention"] += 1
     return out
+
+
+# ------------------------------------------------------ quantized matmul
+
+def dequant_matmul(x, qw):
+    """x (..., K) @ QWeight (K, N) -> (..., N) fp32 (oracle:
+    ``ref.ref_quant_matmul``). The AWQ pre-scale multiplies x in x's dtype
+    first, as the reference's wrapper does; the kernel then reads only the
+    int8/int4 weight bytes and their scales."""
+    lead = x.shape[:-1]
+    xm = x.reshape(-1, x.shape[-1])
+    if qw.pre is not None:
+        xm = xm * qw.pre[None, :].to(xm.dtype)
+    if xm.device.type == "cpu":
+        out = ref.ref_quant_matmul(xm, qw.q, qw.scale, qw.bits, qw.group)
+    else:
+        out = qk.quant_matmul(xm.contiguous(), qw.q, qw.scale, qw.bits,
+                              qw.group)
+        LAUNCHES[f"quant_matmul_int{qw.bits}"] += 1
+    return out.reshape(*lead, qw.out_dim)
 
 
 # ------------------------------------------------------ distillation loss

@@ -81,3 +81,30 @@ def ref_distill_loss(mode, s, t, mask):
     from ..core import losses as L
     fn = {"tvdpp": L.tvdpp, "tvd": L.tvd, "kld": L.kld}[mode]
     return fn(s, t, mask)
+
+
+# ------------------------------------------------------- quantized matmul
+# The plain versions of csrc/quant_matmul.cu (layouts: quant/qweight.py).
+
+def ref_dequant(q, scale, bits, group):
+    """Quantized weight -> (K, N) fp32. int8: q (K, N) int8, scale (1, N);
+    int4: q (K//2, N) uint8 packed (even K row = low nibble), scale
+    (K//group, N)."""
+    if bits == 8:
+        return q.float() * scale
+    lo = (q & 0xF).to(torch.int32)
+    hi = ((q >> 4) & 0xF).to(torch.int32)
+    lo = lo - 16 * (lo >= 8).to(torch.int32)
+    hi = hi - 16 * (hi >= 8).to(torch.int32)
+    half, n = q.shape
+    vals = torch.stack([lo, hi], 1).reshape(2 * half, n).float()
+    return vals * scale.repeat_interleave(group, dim=0)
+
+
+def ref_quant_matmul(x, q, scale, bits, group, pre=None):
+    """Dequantize, then matmul in fp32: x (M, K) -> (M, N) fp32. ``pre``
+    (K,) is the AWQ activation pre-scale, applied to x."""
+    x = x.float()
+    if pre is not None:
+        x = x * pre[None, :]
+    return x @ ref_dequant(q, scale, bits, group)

@@ -13,8 +13,19 @@ Tree speculation (``--tree-depth d --tree-branch k`` builds a uniform
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b-chat \
       --tree --tree-depth 2 --tree-branch 2 --temperature 0.7
 
-Weights are random, drawn from fixed seeds (target 0, drafter 1).
-``--reduced`` serves the small same-family variant (CPU smoke runs).
+Quantized serving (``repro_torch.quant``): ``--quant-weights {int8,int4}``
+post-training-quantizes the drafter (AWQ-lite, calibrated on datagen
+batches from the target; ``--quant-target`` quantizes the target too), and
+every matmul of a quantized model runs the quantized matmul kernel;
+``--quant-kv`` turns both KV caches into int8 with per-slot scales:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b-chat \
+      --quant-weights int8 --quant-target --quant-kv --tree
+
+Weights are random, drawn from fixed seeds (target 0, drafter 1); a model to
+be quantized is drawn in float32, as the reference's parameters are, and its
+unquantized leaves are then cast to the compute dtype. ``--reduced`` serves
+the small same-family variant (CPU smoke runs).
 """
 from __future__ import annotations
 
@@ -23,10 +34,12 @@ import argparse
 import numpy as np
 import torch
 
-from ..configs import ARCHS, get_config, reduced
+from ..configs import ARCHS, QuantConfig, get_config, reduced
+from ..core.datagen import DatagenConfig, generate_distillation_dataset
 from ..core.metrics import mbsu
 from ..core.speculative import SDConfig
 from ..models.model import Model
+from ..quant import cast_unquantized, params_nbytes, quantize_params
 from ..serving.engine import Request, ServingEngine
 from ..spectree.round import tree_speculative_generate
 from ..spectree.tree import TreeSpec
@@ -40,17 +53,50 @@ def count_params(params) -> int:
     return sum(count_params(p) for p in params)
 
 
-def build_models(arch: str, small: bool, device):
+def calibration_tokens(target, t_params, n: int, prompt_len: int,
+                       seed: int = 0) -> np.ndarray:
+    """AWQ calibration batches from the distillation datagen pipeline: the
+    target answers ``n`` seed prompts greedily and at temperature 0.7, 16
+    response tokens each (the drafter's serving distribution)."""
+    seeds = make_prompts(n, prompt_len, target.cfg.vocab_size, seed)
+    return generate_distillation_dataset(
+        target, t_params, seeds,
+        DatagenConfig(temperatures=(0.0, 0.7), max_response_tokens=16,
+                      batch_size=n),
+        gen=torch.Generator(device=target.device).manual_seed(seed))
+
+
+def build_models(arch: str, small: bool, device, quant: QuantConfig = None,
+                 quant_target: bool = False, calib_seqs: int = 4,
+                 calib_len: int = 16):
     """(target, target params, drafter, drafter params, c) with seeded
-    random weights; c is the drafter/target parameter ratio of MBSU."""
+    random weights; c is the drafter/target parameter ratio of MBSU.
+
+    With ``quant`` (int8 or int4) both models are drawn in float32, the
+    target generates ``calib_seqs`` calibration prompts of ``calib_len``
+    tokens, and the drafter (and with ``quant_target`` the target) is
+    quantized from its float32 weights; the float32 copies are dropped."""
     cfg = get_config(arch)
     if small:
         cfg = reduced(cfg)
     target = Model(cfg, device)
-    t_params = target.init(0)
     draft = Model(cfg.drafter().replace(vocab_size=cfg.vocab_size), device)
-    d_params = draft.init(1)
+    if quant is None or quant.bits == 0:
+        t_params, d_params = target.init(0), draft.init(1)
+        c = count_params(d_params) / count_params(t_params)
+        return target, t_params, draft, d_params, c
+    t_params = target.init(0, dtype=torch.float32)
+    d_params = draft.init(1, dtype=torch.float32)
     c = count_params(d_params) / count_params(t_params)
+    calib = calibration_tokens(target, t_params, calib_seqs, calib_len)
+    d_params = cast_unquantized(
+        quantize_params(draft, d_params, quant, calib_tokens=calib),
+        cfg.compute_dtype)
+    if quant_target:
+        t_params = quantize_params(target, t_params, quant, calib_tokens=calib)
+    t_params = cast_unquantized(t_params, cfg.compute_dtype)
+    if target.device.type == "cuda":
+        torch.cuda.empty_cache()        # the float32 weights are gone
     return target, t_params, draft, d_params, c
 
 
@@ -103,15 +149,40 @@ def main(argv=None):
                     help="children per node at every level")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card raises")
+    ap.add_argument("--quant-weights", choices=("int8", "int4"), default=None,
+                    help="PTQ the drafter weights (AWQ-lite calibrated)")
+    ap.add_argument("--quant-target", action="store_true",
+                    help="also quantize the target's weights")
+    ap.add_argument("--quant-kv", action="store_true",
+                    help="int8 KV caches with per-slot scales")
+    ap.add_argument("--quant-group", type=int, default=64,
+                    help="int4 scale group along the input dim")
+    ap.add_argument("--calib-seqs", type=int, default=4,
+                    help="datagen seed sequences for AWQ calibration")
     args = ap.parse_args(argv)
     if args.tree and args.no_draft:
         ap.error("--tree is speculative-only")
+    if args.quant_target and args.quant_weights is None:
+        ap.error("--quant-target requires --quant-weights {int8,int4}")
+    if args.quant_weights is not None and args.no_draft:
+        raise SystemExit("--quant-weights applies to the drafter")
 
+    quant = (QuantConfig(weights=args.quant_weights,
+                         group_size=args.quant_group)
+             if args.quant_weights else None)
     target, t_params, draft, d_params, c = build_models(
-        args.arch, args.reduced, args.device)
+        args.arch, args.reduced, args.device, quant, args.quant_target,
+        args.calib_seqs, args.prompt_len)
     print(f"arch={target.cfg.name} draft={draft.cfg.name} c={c:.4f} "
           f"device={target.device}")
-    sdc = SDConfig(gamma=args.gamma, temperature=args.temperature)
+    if quant is not None:
+        print(f"quantized weights={args.quant_weights} "
+              f"target={'yes' if args.quant_target else 'no'} "
+              f"kv={'int8' if args.quant_kv else 'fp'}; stored bytes: "
+              f"target {params_nbytes(t_params)}, "
+              f"drafter {params_nbytes(d_params)}")
+    sdc = SDConfig(gamma=args.gamma, temperature=args.temperature,
+                   kv_quant=args.quant_kv)
     prompts = make_prompts(args.requests, args.prompt_len, target.cfg.vocab_size)
 
     if args.tree:

@@ -8,10 +8,11 @@ every other decode call run the plain masked ``_sdpa``, as the reference runs
 them outside any Pallas kernel. Unlike the reference's ``S % 128`` rule,
 the kernel takes any cache width, so no tree call falls back to ``_sdpa``.
 
-Caches are dicts {"k", "v": (B, Smax, Hkv, hd), "pos": (B, Smax)}. Where
-the reference returns a new cache from ``.at[].set``, the port writes the
-new entries into the cache tensors in place (``index_put_``) and returns
-the same dict.
+Caches are dicts {"k", "v": (B, Smax, Hkv, hd), "pos": (B, Smax)}, and in
+the int8 layout (``quant.kvcache``) also {"k_scale", "v_scale": (B, Smax,
+Hkv)}. Where the reference returns a new cache from ``.at[].set``, the port
+writes the new entries into the cache tensors in place (``index_put_``) and
+returns the same dict.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import math
 import torch
 
 from ..kernels import ops
+from ..quant.kvcache import (dequantize_kv_entry, kv_quantized,
+                             quantize_kv_entry)
 from .layers import apply_rope, matmul_param, softcap
 
 NEG_INF = -2.0e38
@@ -129,6 +132,8 @@ def decode_attention(params, x, cache, pos, cfg, slots=None, attn_mask=None):
     attn_mask: optional (B, T, Smax) slot-aligned mask replacing positional
       causality (tree ancestor masks); validity of written slots is still
       enforced here. Such calls go through the tree attention kernel.
+    An int8 cache (one with "k_scale") gets the new entries quantized per
+    (slot, kv head) on write, and attention reads its dequantized view.
     Returns (out, cache) with the new tokens written into ``cache``.
     """
     B, T, _ = x.shape
@@ -138,10 +143,20 @@ def decode_attention(params, x, cache, pos, cfg, slots=None, attn_mask=None):
     write_pos = pos if slots is None else slots
     slot_idx = (write_pos % Smax).long()
     bidx = torch.arange(B, device=x.device)[:, None]
-    kcache[bidx, slot_idx] = k.to(kcache.dtype)
-    vcache[bidx, slot_idx] = v.to(vcache.dtype)
+    if kv_quantized(cache):
+        kq, ks = quantize_kv_entry(k)
+        vq, vs = quantize_kv_entry(v)
+        kcache[bidx, slot_idx] = kq
+        vcache[bidx, slot_idx] = vq
+        cache["k_scale"][bidx, slot_idx] = ks
+        cache["v_scale"][bidx, slot_idx] = vs
+        kc = dequantize_kv_entry(kcache, cache["k_scale"], q.dtype)
+        vc = dequantize_kv_entry(vcache, cache["v_scale"], q.dtype)
+    else:
+        kcache[bidx, slot_idx] = k.to(kcache.dtype)
+        vcache[bidx, slot_idx] = v.to(vcache.dtype)
+        kc, vc = kcache.to(q.dtype), vcache.to(q.dtype)
     cache_pos[bidx, slot_idx] = write_pos.to(torch.int32)
-    kc, vc = kcache.to(q.dtype), vcache.to(q.dtype)
     if attn_mask is None:
         m = (cache_pos[:, None, :] >= 0) & (cache_pos[:, None, :] <= pos[:, :, None])
     else:

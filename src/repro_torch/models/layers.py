@@ -8,7 +8,8 @@ every matmul the same values, and the 7B target takes 13.5 GB on the card
 instead of 27 GB. A model under training keeps float32 master weights, as
 the reference does: between 0.031 and 0.0625 bf16's spacing is 2.4e-4, so
 an AdamW step of 1e-4 there would round away. Norm weights stay float32:
-``rms_norm`` reads them in float32.
+``rms_norm`` reads them in float32. A quantized model holds
+``quant.QWeight``s in place of its matmul weights.
 """
 from __future__ import annotations
 
@@ -18,10 +19,25 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
+
+#: set by ``quant.calib.capture_activations`` during AWQ calibration:
+#: records the per-input-channel activation absmax at every matmul site.
+_ACT_CAPTURE = None
+
 
 def matmul_param(x, w):
     """x (..., K) @ w (K, N): the single dispatch point for every 2-D weight
-    matmul in the model."""
+    matmul in the model.
+
+    ``w`` may be a tensor or a ``quant.QWeight``; a quantized weight goes
+    through the quantized matmul kernel (``ops.dequant_matmul``) and the
+    result is cast to x's dtype. During AWQ calibration the capture hook
+    records the activation entering a plain weight's site."""
+    if hasattr(w, "bits"):             # QWeight (duck-typed: no import cycle)
+        return ops.dequant_matmul(x, w).to(x.dtype)
+    if _ACT_CAPTURE is not None:
+        _ACT_CAPTURE.record(w, x)
     return x @ w.to(x.dtype)
 
 

@@ -61,8 +61,8 @@ class Model:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return tfm.init_params(gen, self.cfg, self.device, dtype)
 
-    def init_cache(self, batch: int, max_len: int):
-        return tfm.init_cache(self.cfg, batch, max_len, self.device)
+    def init_cache(self, batch: int, max_len: int, kv_quant: bool = False):
+        return tfm.init_cache(self.cfg, batch, max_len, self.device, kv_quant)
 
     def hidden(self, params, tokens):
         """tokens (B, S) -> final hidden states (B, S, D) of a training

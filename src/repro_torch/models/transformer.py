@@ -58,14 +58,25 @@ def init_params(gen, cfg, device, dtype=None):
     return params
 
 
-def init_cache(cfg, batch, max_len, device):
-    """One empty KV cache dict per layer (positions -1 = empty slot)."""
+def init_cache(cfg, batch, max_len, device, kv_quant=False):
+    """One empty KV cache dict per layer (positions -1 = empty slot).
+    ``kv_quant`` builds the int8 layout (``quant.kvcache``): int8 k/v plus
+    fp32 per-(slot, head) "k_scale"/"v_scale" of shape (B, S, Hkv)."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
-    return [{"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+    kv_dtype = torch.int8 if kv_quant else cfg.compute_dtype
+    caches = []
+    for _ in range(cfg.num_layers):
+        c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=device),
              "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
                                device=device)}
-            for _ in range(cfg.num_layers)]
+        if kv_quant:
+            c["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)
+            c["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)
+        caches.append(c)
+    return caches
 
 
 def _train_layer(lp, x, positions, cfg):

@@ -29,6 +29,7 @@ class Result:
     tokens: np.ndarray                 # generated continuation (max_new,)
     tau: float
     wall_time_s: float
+    rounds: int = 0                    # speculative rounds of its batch
 
 
 @dataclass
@@ -77,5 +78,6 @@ class ServingEngine:
                     results.append(Result(
                         request_id=r.request_id,
                         tokens=toks[j, plen:plen + max_new],
-                        tau=stats.tau, wall_time_s=dt / len(batch)))
+                        tau=stats.tau, wall_time_s=dt / len(batch),
+                        rounds=stats.rounds))
         return results

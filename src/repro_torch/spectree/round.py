@@ -48,7 +48,8 @@ def commit_tree_path(cache, lengths, path_nodes, n_acc, num_nodes):
     path_nodes: (B, depth+1) node index of the accepted path at each depth
     (entries past n_acc repeat the last node; they get pos -1). Node i's
     K/V sits at slot ``(lengths + i) % Smax``; the accepted depth-d node is
-    copied to slot ``(lengths + d) % Smax`` with position ``lengths + d``.
+    copied to slot ``(lengths + d) % Smax`` with position ``lengths + d``;
+    an int8 cache's per-slot scales move with their entries.
     """
     B, Dp1 = path_nodes.shape
     S = _cache_view_width(cache)
@@ -61,8 +62,9 @@ def commit_tree_path(cache, lengths, path_nodes, n_acc, num_nodes):
     canon = torch.where(offs <= n_acc[:, None], lengths[:, None] + offs,
                         -1).to(torch.int32)
     for layer in cache:
-        for name in ("k", "v"):
-            layer[name][bidx, dst] = layer[name][bidx, src]
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if name in layer:
+                layer[name][bidx, dst] = layer[name][bidx, src]
         layer["pos"][bidx, tree_slots] = -1
         layer["pos"][bidx, dst] = canon
     return cache
