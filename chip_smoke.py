@@ -48,15 +48,36 @@ Phases, each printing one JSON line:
      times);
  11. greedy exactness under int8 and int4 weights with 2 target layers in
      float32: tree and chain tokens must equal the quantized target's
-     greedy tokens.
-Phases 10 and 11 run before phase 9. Then the ``kernels`` line, the
+     greedy tokens;
+ 12. flash decode (run after phase 4, on its models): the kernel against
+     its plain version within 1e-5 of the output's scale at the decode
+     shapes of the pair (B 4, Hkv 32 and 8, G 1, hd 128, S of the chain
+     cache, 1024 and 4096, bf16 and float32, K/V through an int8 cache),
+     of the pipeline configs (hd 32 G 3, hd 16 G 2) and of the reference's
+     kernel benchmark (Hkv 4, G 2, S 1024, float32), with softcap, ragged
+     S, empty ring slots and a fully masked row; a copy of the kernel with
+     a bf16 accumulator must fail that tolerance; the port's decode
+     attention at full width (target layers 0 and 31, also with an int8
+     cache, drafter layers 0 and 3) against the route through
+     ``ops.flash_decode_attention``, whose launches are counted; its times
+     beside the bound, the plain version's and scaled_dot_product_attention's.
+     No serving phase launches it, as in the reference;
+ 13. the paper's pipeline (``repro_torch.experiments.run_pipeline``) at the
+     reference's --quick sizes: pretraining, chat-SFT, datagen, KLD/TVD/
+     TVD++ fine-tuning, tau and MBSU;
+ 14. the training CLI (``repro_torch.launch.train --reduced``), pretrain
+     and TVD++ distill, 50 steps each, in subprocesses.
+Phases 10, 11, 13 and 14 run before phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
 non-zero exit code and no result line.
 """
 import contextlib
+import dataclasses
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -77,6 +98,8 @@ QUANT_CU = "src/repro_torch/kernels/csrc/quant_matmul.cu"
 KERNEL_ROUTES = {   # name -> (route, source, TPU kernel it replaces)
     "tree_attention": ("cuda", "src/repro_torch/kernels/csrc/tree_attention.cu",
                        "src/repro/kernels/tree_attention.py:85"),
+    "flash_decode": ("cuda", "src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode.py:73"),
     "row_logsumexp": ("cuda", DISTILL_CU, "src/repro/kernels/distill_loss.py:78"),
     "loss_terms": ("cuda", DISTILL_CU, "src/repro/kernels/distill_loss.py:148"),
     "loss_grad": ("cuda", DISTILL_CU, "src/repro/kernels/distill_loss.py:185"),
@@ -338,6 +361,7 @@ def phase4_chain_serving(models, smi):
           "ar_tok_s": ar_tok_s, "launches": chain_launches,
           "note": "tok/s over each batch's wall time, prefill included",
           "nvidia_smi": smi})
+    return chain_launches
 
 
 def phase5_greedy_exactness():
@@ -693,7 +717,7 @@ def phase7_training(smi):
     step_ms = [1e3 * (b - a) for a, b in zip([t0] + marks[:-1], marks)]
     steady_ms = sum(step_ms[1:]) / len(step_ms[1:])      # step 1 warms up
     n = S // 512                                         # loss chunks per step
-    per_step = {"tree_attention": 0, "row_logsumexp": 6 * n,
+    per_step = {"tree_attention": 0, "flash_decode": 0, "row_logsumexp": 6 * n,
                 "loss_terms": 3 * n, "loss_grad": n, "quant_matmul_int8": 0,
                 "quant_matmul_int4": 0}
     assert launches == {k: v * steps for k, v in per_step.items()}, launches
@@ -1121,6 +1145,343 @@ def phase11_quant_greedy_exactness():
           "kv": "float", "temperature": 0.0, "results": out})
 
 
+# ------------------------------------------------ flash decode (12)
+
+# kernel vs plain version, relative to the output's scale (max |plain|):
+# both widen K/V to fp32 and sum fp32 products, so they differ only in the
+# order of the sums (at most 1.1e-6 of scale on an H100); a copy of the
+# kernel whose accumulator is rounded to bf16 is off by 1.8e-3 or more
+FD_TOL = 1e-5
+# the port's decode attention (bf16 scores, probabilities and output)
+# against the kernel route (fp32 inside, its output rounded to bf16 before
+# wo), relative L2 norm of the layer's output: bf16 rounding of the scores
+# and probabilities moves it by about 5e-3
+FD_MODEL_TOL = 2e-2
+FD_CHAIN_S = 128 + 64 + 3 + 2    # chain serving cache length of phase 4
+FD_ACC_LINE = "acc[i][e] = fmaf(p[u], to_float(vt[e]), acc[i][e]);"
+
+
+def decode_inputs(gen, B, Hkv, G, hd, S, dtype, kv="float", masked_row=False):
+    """Inputs of the flash decode kernel: q/k/v drawn on the card (K/V
+    through an int8 cache and back with ``kv="int8"``) and the validity mask
+    of a ring cache decoding past its last slot: a tenth of each row's
+    slots empty (position -1), the rest valid; row 0 fully masked if
+    asked."""
+    from repro_torch.quant.kvcache import dequantize_kv_entry, quantize_kv_entry
+    dev = "cuda"
+    q = torch.randn((B, Hkv, G, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+    if kv == "int8":
+        k = dequantize_kv_entry(*quantize_kv_entry(k), dtype)
+        v = dequantize_kv_entry(*quantize_kv_entry(v), dtype)
+    k, v = k.to(dtype), v.to(dtype)
+    mask = torch.rand((B, S), generator=gen, device=dev) >= 0.1
+    if masked_row:
+        mask[0] = False
+    return q, k, v, mask
+
+
+def sdpa_decode(q, k, v, mask):
+    """The one PyTorch call that computes flash decode (a yardstick only):
+    scaled_dot_product_attention on (B, H, 1, hd) queries and (B, Hkv, S,
+    hd) views of the cache, the (B, S) mask broadcast, GQA by the library."""
+    B, Hkv, G, hd = q.shape
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.reshape(B, Hkv * G, 1, hd), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask[:, None, None, :], enable_gqa=True)
+    return out.reshape(B, Hkv, G, hd)
+
+
+FD_CASES = [  # (label, B, Hkv, G, hd, S, dtype, softcap, kv, masked_row)
+    ("bench", 4, 4, 2, 128, 1024, torch.float32, None, "float", False),
+    *[(f"{who}-S{S}", 4, hkv, 1, 128, S, dt, None, "float", False)
+      for who, hkv in (("target", 32), ("drafter", 8))
+      for S in (FD_CHAIN_S, 1024, 4096)
+      for dt in (torch.bfloat16, torch.float32)],
+    ("target-int8kv", 4, 32, 1, 128, FD_CHAIN_S, torch.bfloat16, None, "int8", False),
+    ("drafter-int8kv", 4, 8, 1, 128, 1024, torch.bfloat16, None, "int8", False),
+    ("pipeline-target", 4, 2, 3, 32, FD_CHAIN_S, torch.bfloat16, None, "float", False),
+    ("pipeline-target", 4, 2, 3, 32, FD_CHAIN_S, torch.float32, None, "float", False),
+    ("pipeline-drafter", 4, 2, 2, 16, FD_CHAIN_S, torch.bfloat16, None, "float", False),
+    ("pipeline-drafter", 4, 2, 2, 16, FD_CHAIN_S, torch.float32, None, "float", False),
+    ("hd64-G3", 2, 4, 3, 64, 1024, torch.bfloat16, None, "float", False),
+    ("hd256", 2, 2, 2, 256, 512, torch.float32, None, "float", False),
+    ("G5", 2, 3, 5, 64, 201, torch.float32, None, "float", False),
+    ("softcap", 4, 32, 1, 128, FD_CHAIN_S, torch.bfloat16, 50.0, "float", False),
+    ("ragged", 4, 32, 1, 128, 201, torch.bfloat16, None, "float", False),
+    ("fully-masked-row", 4, 8, 1, 128, 1024, torch.bfloat16, None, "float", True),
+    ("S1", 1, 2, 1, 128, 1, torch.float32, None, "float", False),
+]
+
+
+def check_decode_cases():
+    """Every case of FD_CASES through the kernel (``kernels.flash_decode``,
+    not counted) against the plain version; returns the records."""
+    from repro_torch.kernels import flash_decode as fk
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = []
+    for label, B, Hkv, G, hd, S, dtype, cap, kv, masked in FD_CASES:
+        q, k, v, mask = decode_inputs(gen, B, Hkv, G, hd, S, dtype, kv, masked)
+        got = fk.flash_decode(q, k, v, mask, softcap=cap)
+        want = ref.ref_flash_decode(q, k, v, mask, softcap=cap)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        out.append({"case": label, "B": B, "Hkv": Hkv, "G": G, "hd": hd, "S": S,
+                    "dtype": str(dtype).split(".")[-1], "softcap": cap, "kv": kv,
+                    "fully_masked_row": masked, "splits": fk.plan(
+                        B, Hkv, G, hd, S, q.element_size(),
+                        fk._sm_count(0))[1],
+                    "max_abs_err": err, "rel_err": err / scale,
+                    "ok": bool(torch.isfinite(got).all()) and err <= FD_TOL * scale})
+    return out
+
+
+def bf16_accumulator_copy():
+    """A copy of the kernel that rounds its accumulator to bf16 after every
+    product, built beside the real one: the tolerance must see it."""
+    from repro_torch.kernels import build
+    src = (ROOT / "src/repro_torch/kernels/csrc/flash_decode.cu").read_text()
+    assert src.count(FD_ACC_LINE) == 1, "the accumulator line moved"
+    src = src.replace(FD_ACC_LINE, "acc[i][e] = __bfloat162float(__float2bfloat16("
+                      "fmaf(p[u], to_float(vt[e]), acc[i][e])));")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = build.BUILD_DIR / "flash_decode_bf16_acc.cu"
+    so = build.BUILD_DIR / "libflash_decode_bf16_acc.so"
+    cu.write_text(src)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                   check=True, capture_output=True, timeout=build.BUILD_TIMEOUT_S)
+    import ctypes
+    fn = ctypes.CDLL(str(so)).flash_decode_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def model_decode_check(models):
+    """The port's decode attention for one decode position after a prefill
+    of 4 x 128, at full width, against the kernel route on the same layer:
+    ``_project_qkv``, the new entry written into a copy of the cache, the
+    validity mask, ``ops.flash_decode_attention`` and ``wo``. The kernel's
+    fp32 output is also held to ``_sdpa`` in float32 on the same q/k/v.
+    Target layers 0 and 31 (bf16 cache, then layer 31 of the int8 cache) and
+    drafter layers 0 and 3."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import attention
+    from repro_torch.models.layers import embed_tokens, matmul_param, rms_norm
+    from repro_torch.quant.kvcache import (dequantize_kv_entry, quantize_kv_cache,
+                                           quantize_kv_entry)
+    target, t_params, draft, d_params, _ = models
+    B, P = 4, 128
+    prompt = torch.as_tensor(serve.make_prompts(B, P, target.cfg.vocab_size),
+                             device="cuda")
+    nxt = prompt[:, -1:]
+    pos = torch.full((B, 1), P, dtype=torch.long, device="cuda")
+    records = []
+    for who, model, params in (("target", target, t_params),
+                               ("drafter", draft, d_params)):
+        cfg = model.cfg
+        _, caches = model.prefill(params, prompt, cache_len=FD_CHAIN_S)
+        last = cfg.num_layers - 1
+        layers = [(0, caches), (last, caches)]
+        if who == "target":
+            layers.append((last, quantize_kv_cache(caches)))
+        for i, cs in layers:
+            lp = params["layers"][i]
+            x = embed_tokens(params["embed"], nxt).to(cfg.compute_dtype)
+            h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+            c_ref = {n: t.clone() for n, t in cs[i].items()}
+            out_ref, _ = attention.decode_attention(lp["attn"], h, c_ref, pos, cfg)
+
+            c = {n: t.clone() for n, t in cs[i].items()}
+            q, k, v = attention._project_qkv(lp["attn"], h, cfg, pos)
+            bidx = torch.arange(B, device="cuda")[:, None]
+            slot = (pos % FD_CHAIN_S).long()
+            if "k_scale" in c:
+                (kq, ks), (vq, vs) = quantize_kv_entry(k), quantize_kv_entry(v)
+                c["k"][bidx, slot], c["k_scale"][bidx, slot] = kq, ks
+                c["v"][bidx, slot], c["v_scale"][bidx, slot] = vq, vs
+                kc = dequantize_kv_entry(c["k"], c["k_scale"], q.dtype)
+                vc = dequantize_kv_entry(c["v"], c["v_scale"], q.dtype)
+            else:
+                c["k"][bidx, slot], c["v"][bidx, slot] = k, v
+                kc, vc = c["k"], c["v"]
+            c["pos"][bidx, slot] = pos.to(torch.int32)
+            mask = (c["pos"] >= 0) & (c["pos"] <= pos)
+            Hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+            qg = q.reshape(B, Hkv, cfg.q_per_kv, hd)        # kv-major heads
+            att = ops.flash_decode_attention(qg, kc, vc, mask, cfg.attn_softcap)
+            out_k = matmul_param(att.reshape(B, 1, -1).to(q.dtype), lp["attn"]["wo"])
+            f32 = attention._sdpa(q.float(), kc.float(), vc.float(),
+                                  mask[:, None, :], cfg)
+            torch.cuda.synchronize()
+            rel_l2 = ((out_k.float() - out_ref.float()).norm()
+                      / out_ref.float().norm()).item()
+            att_err = (att.reshape(f32.shape) - f32).abs().max().item()
+            att_scale = f32.abs().max().item()
+            rec = {"model": who, "layer": i,
+                   "kv": "int8" if "k_scale" in c else str(kc.dtype).split(".")[-1],
+                   "S": FD_CHAIN_S, "valid_slots": int(mask[0].sum()),
+                   "out_rel_l2_vs_decode_attention": rel_l2,
+                   "out_tol": FD_MODEL_TOL,
+                   "attn_max_abs_err_vs_fp32_sdpa": att_err,
+                   "attn_tol": FD_TOL * att_scale,
+                   "cache_written_alike": bool(torch.equal(c["pos"], c_ref["pos"])
+                                               and torch.equal(c["k"], c_ref["k"]))}
+            rec["ok"] = (rel_l2 <= FD_MODEL_TOL and att_err <= rec["attn_tol"]
+                         and rec["cache_written_alike"])
+            records.append(rec)
+            if not rec["ok"]:
+                emit({"phase": 12, "failed_model_check": rec})
+                raise AssertionError("flash decode route disagrees with decode "
+                                     "attention")
+    return records
+
+
+def phase12_flash_decode(models, smi):
+    """flash_decode against its plain version at every decode shape of the
+    pair and of the pipeline configs; a copy with a bf16 accumulator must
+    fail the same tolerance; the full-width decode-attention check through
+    ``ops.flash_decode_attention`` (the launches counted); device times
+    beside the bound, the plain version's and SDPA's."""
+    from unittest import mock
+    from repro_torch.kernels import flash_decode as fk
+    from repro_torch.kernels import ops, ref
+    cases = check_decode_cases()
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        emit({"phase": 12, "cases": cases})
+        raise AssertionError(f"flash_decode disagrees with its plain version: {bad}")
+
+    copy_fn = bf16_accumulator_copy()
+    with mock.patch.object(fk, "_launcher", lambda: copy_fn):
+        copy = check_decode_cases()
+    assert not any(c["ok"] for c in copy), ("the tolerance passes a kernel "
+                                            "with a bf16 accumulator", copy)
+
+    ops.reset_launches()
+    model_checks = model_decode_check(models)
+    launches = dict(ops.LAUNCHES)
+    assert launches == {**{n: 0 for n in launches}, "flash_decode": len(model_checks)}, \
+        launches
+
+    # device times at the decode shapes (bf16, one position, ring masks
+    # without empty rows), rotating over enough input sets to exceed the L2
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    timing, lib_err = {}, {}
+    for label, B, Hkv, G, S, dtype in (("target-S1024", 4, 32, 1, 1024, torch.bfloat16),
+                                       ("target-S4096", 4, 32, 1, 4096, torch.bfloat16),
+                                       ("drafter-S1024", 4, 8, 1, 1024, torch.bfloat16),
+                                       ("bench", 4, 4, 2, 1024, torch.float32)):
+        one = decode_inputs(gen, B, Hkv, G, 128, S, dtype)
+        set_bytes = sum(t.numel() * t.element_size() for t in one)
+        sets = [one] + [decode_inputs(gen, B, Hkv, G, 128, S, dtype)
+                        for _ in range(max(1, math.ceil(150e6 / set_bytes)) - 1)]
+        want = ref.ref_flash_decode(*one)
+        lib = sdpa_decode(*one).float()
+        lib_err[label] = {"max_abs_err": (lib - want).abs().max().item(),
+                          "tol": LIBRARY_TOL * want.abs().max().item()}
+        assert lib_err[label]["max_abs_err"] <= lib_err[label]["tol"], \
+            ("SDPA disagrees with the plain version", label, lib_err[label])
+        it = iter(range(10 ** 9))
+
+        def rotate(fn):
+            return lambda: fn(*sets[next(it) % len(sets)])
+
+        fns = {"kernel": fk.flash_decode, "plain": ref.ref_flash_decode,
+               "library": sdpa_decode}
+        dev = {name: graph_ms(rotate(fn)) for name, fn in fns.items()}
+        dev["kernel_repeat"] = graph_ms(rotate(fk.flash_decode))
+        eager = cuda_ms(rotate(fk.flash_decode), iters=200)
+        q, k, v, mask = one       # one decode row: a tree of one node
+        bound_ms, bound_by = tree_bound_ms(q[:, :, None], k, v, mask)
+        timing[label] = {"B": B, "Hkv": Hkv, "G": G, "hd": 128, "S": S,
+                         "dtype": str(dtype).split(".")[-1], "input_sets": len(sets),
+                         "splits": fk.plan(B, Hkv, G, 128, S, one[0].element_size(),
+                                           fk._sm_count(0))[1],
+                         "device_ms": dev, "kernel_eager_call_ms": eager,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        del sets, one
+    emit({"phase": 12, "cases": cases, "tolerance_rel": FD_TOL,
+          "worst_rel_err": max(c["rel_err"] for c in cases),
+          "bf16_accumulator_copy": {
+              "rel_err": {f"{c['case']}/{c['dtype']}/S{c['S']}": c["rel_err"]
+                          for c in copy},
+              "fails_tolerance": sum(not c["ok"] for c in copy), "of": len(copy)},
+          "model_checks": model_checks, "launches": launches,
+          "library_vs_plain": lib_err,
+          "timing_note": "device ms per call, CUDA graph of 200 calls, q/k/v "
+                         "bf16 (bench: fp32), hd 128, G 1 (bench: G 2)",
+          "timing": timing, "nvidia_smi": smi})
+    torch.cuda.empty_cache()
+    t = timing["target-S1024"]
+    err = next(c["max_abs_err"] for c in cases
+               if c["case"] == "target-S1024" and c["dtype"] == "bfloat16")
+    return launches["flash_decode"], {
+        "flash_decode": {"max_abs_err": err, "ms": t["device_ms"]["kernel"],
+                         "plain_ms": t["device_ms"]["plain"],
+                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                         "library_ms": t["device_ms"]["library"]}}
+
+
+# ------------------------------------------------ the paper's pipeline (13-14)
+
+def phase13_pipeline(smi):
+    """The paper's pipeline on the card at the reference's --quick sizes."""
+    from repro_torch.experiments import pipeline
+    t0 = time.perf_counter()
+    res = pipeline.run_pipeline(device="cuda", verbose=False, **pipeline.QUICK)
+    wall_s = time.perf_counter() - t0
+    c = pipeline.draft_config().param_count() / pipeline.target_config().param_count()
+    gammas = (3, 5)
+    taus = [(g, res.tau[v][t][str(g)]) for v in res.tau for t in res.tau[v]
+            for g in gammas]
+    taus += [(3, tau) for v in res.tau_by_ckpt for t in res.tau_by_ckpt[v]
+             for _, tau in res.tau_by_ckpt[v][t]]
+    taus += [(3, tau) for tau in res.ood.values()]
+    emit({"phase": 13, "sizes": pipeline.QUICK, "result": dataclasses.asdict(res),
+          "wall_s": wall_s, "c_from_configs": c, "nvidia_smi": smi})
+    assert res.c_ratio == c, (res.c_ratio, c)
+    assert len(taus) == 4 * 3 * 2 + 3 * 3 * 3 + 4, len(taus)
+    assert all(1.0 <= tau <= g + 1 for g, tau in taus), taus
+    assert all(math.isfinite(m) for v in res.mbsu.values() for t in v.values()
+               for m in t.values()), res.mbsu
+    assert all(math.isfinite(r) and r > 0 for r in res.token_rate_ratio.values())
+
+
+STEP_LOSS = re.compile(r"^step (\d+): .*'loss': ([^,}]+)", re.M)
+
+
+def phase14_train_cli(smi):
+    """The training CLI in subprocesses: --phase pretrain (the loss must
+    fall below its first logged value) and --phase distill --loss tvdpp
+    (the TVD++ surrogate is 0 up to rounding: finite), 50 steps each."""
+    runs = {}
+    for name, extra in (("pretrain", ["--phase", "pretrain", "--save",
+                                      str(ROOT / "build" / "train_cli.npz")]),
+                        ("distill", ["--phase", "distill", "--loss", "tvdpp"])):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "llama2-7b-chat", "--reduced", "--steps", "50", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        losses = [float(x) for _, x in STEP_LOSS.findall(proc.stdout)]
+        runs[name] = {"cmd": " ".join(cmd[1:]), "rc": proc.returncode,
+                      "s": time.perf_counter() - t0, "loss": losses,
+                      "tail": proc.stdout.strip().splitlines()[-2:],
+                      "stderr": proc.stderr.strip().splitlines()[-3:]}
+    emit({"phase": 14, "runs": runs, "nvidia_smi": smi})
+    for name, r in runs.items():
+        assert r["rc"] == 0 and len(r["loss"]) == 5, (name, r)
+        assert all(math.isfinite(x) for x in r["loss"]), (name, r)
+    assert min(runs["pretrain"]["loss"][1:]) < runs["pretrain"]["loss"][0], \
+        runs["pretrain"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1134,14 +1495,19 @@ def main():
     timings = phase2_kernels()
     models = serve.build_models("llama2-7b-chat", False, "cuda")
     launches = phase3_tree_serving(models, smi)
-    phase4_chain_serving(models, smi)
+    chain_launches = phase4_chain_serving(models, smi)
+    # the reference never dispatches flash decode on its serving path
+    serving_fd = launches["flash_decode"] + chain_launches["flash_decode"]
+    assert serving_fd == 0, serving_fd
+    launches["flash_decode"], fd_timing = phase12_flash_decode(models, smi)
+    timings.update(fd_timing)
     del models
     torch.cuda.empty_cache()
     phase5_greedy_exactness()
     torch.cuda.empty_cache()
     timings.update(phase6_distill_kernels())
     launches.update({k: v for k, v in phase7_training(smi).items()
-                     if k != "tree_attention"})
+                     if k in ("row_logsumexp", "loss_terms", "loss_grad")})
     torch.cuda.empty_cache()
     phase8_float32_routes()
     torch.cuda.empty_cache()
@@ -1152,12 +1518,17 @@ def main():
         torch.cuda.empty_cache()
     phase11_quant_greedy_exactness()
     torch.cuda.empty_cache()
+    phase13_pipeline(smi)
+    torch.cuda.empty_cache()
+    phase14_train_cli(smi)
     timings.update(phase9_quant_kernels())
     kernels = []
     for name, (route, source, replaces) in KERNEL_ROUTES.items():
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": launches[name],
                         **timings[name]})
+        if name == "flash_decode":      # phase 12's launches; on serving: 0
+            kernels[-1]["serving_path_launches"] = serving_fd
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,6 +1,6 @@
 """Public wrappers over the port's kernels (``repro.kernels.ops``): tree
-attention, the quantized matmul, and the fused distillation loss assembled
-from three kernels.
+attention, flash decode, the quantized matmul, and the fused distillation
+loss assembled from three kernels.
 
 Each wrapper runs the kernel's plain version for tensors that lie on the
 CPU, and for CUDA tensors launches the kernel or raises: nothing on the
@@ -13,12 +13,14 @@ from __future__ import annotations
 import torch
 
 from . import distill_loss as dk
+from . import flash_decode as fk
 from . import quant_matmul as qk
 from . import ref
 from . import tree_attention as tk
 
-LAUNCHES = {"tree_attention": 0, "row_logsumexp": 0, "loss_terms": 0,
-            "loss_grad": 0, "quant_matmul_int8": 0, "quant_matmul_int4": 0}
+LAUNCHES = {"tree_attention": 0, "flash_decode": 0, "row_logsumexp": 0,
+            "loss_terms": 0, "loss_grad": 0, "quant_matmul_int8": 0,
+            "quant_matmul_int4": 0}
 
 
 def reset_launches() -> None:
@@ -34,6 +36,18 @@ def tree_verify_attention(q, k, v, mask, softcap=None):
         return ref.ref_tree_attention(q, k, v, mask, softcap)
     out = tk.tree_attention(q, k, v, mask, softcap)
     LAUNCHES["tree_attention"] += 1
+    return out
+
+
+def flash_decode_attention(q, k, v, mask, softcap=None):
+    """q (B, Hkv, G, hd), k/v (B, S, Hkv, hd), mask (B, S) bool -> fp32
+    (B, Hkv, G, hd): one decode position per query head (oracle:
+    ``ref.ref_flash_decode``). As in the reference, no model call reaches
+    it: decode attention runs the plain masked attention."""
+    if q.device.type == "cpu":
+        return ref.ref_flash_decode(q, k, v, mask, softcap)
+    out = fk.flash_decode(q, k, v, mask, softcap)
+    LAUNCHES["flash_decode"] += 1
     return out
 
 

@@ -25,6 +25,20 @@ def ref_tree_attention(q, k, v, mask, softcap=None):
     return torch.einsum("bhngs,bshd->bhngd", p, v.float())
 
 
+def ref_flash_decode(q, k, v, mask, softcap=None):
+    """q: (B, Hkv, G, hd); k/v: (B, S, Hkv, hd); mask: (B, S) bool.
+
+    One decode position's GQA attention in float32; returns (B, Hkv, G, hd)
+    fp32. A fully masked row averages V over all S slots."""
+    hd = q.shape[-1]
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) / math.sqrt(hd)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgs,bshd->bhgd", p, v.float())
+
+
 # ----------------------------------------------------- distillation loss
 # The plain versions of csrc/distill_loss.cu. Like the kernels, they take
 # each row's logsumexp as an input and form p and q as exp(x - lse), so that
