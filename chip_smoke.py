@@ -6,8 +6,9 @@ Phases, each printing one JSON line:
   1. device and build: the card, then every CUDA kernel of the port built
      from ``src/repro_torch/kernels/csrc`` with nvcc (one process each);
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes of the serving path, and its time beside its bound, the plain
-     version's and one PyTorch library call's;
+     shapes of the serving path and at every head dim the reference takes
+     (16-256), a second input set run twice for equal outputs, and its time
+     beside its bound, the plain version's and one PyTorch library call's;
   3. full-width tree-speculative serving: Llama-2-7B-Chat with the 115M
      drafter in bf16, random weights from fixed seeds, 4 requests, prompt
      128, 64 new tokens, tree (2, 2), temperature 0.7; the tree attention
@@ -34,12 +35,15 @@ Phases, each printing one JSON line:
      version within 1e-4 of the output's scale, at every (K, N) of the
      quantized target and drafter and every M phase 10 gives it (4, 8, 16,
      28 and 512), x in bf16 and float32, with and without an AWQ
-     pre-scale, and at a ragged shape; then its times at the target's
-     shapes at M 16, 28 and 512 beside their bounds, the plain version's,
-     the library call's that computes the same function with bf16 scales
-     (torch._weight_int8pack_mm, torch._weight_int4pack_mm; held against
-     the plain version first), and cuBLAS's bf16 matmul on the unquantized
-     weight;
+     pre-scale, and at a ragged shape; the rows of an M 28 batch must come
+     out bit for bit the same inside M 4, 16 and 512 batches (greedy
+     exactness rests on it); a copy of the kernel that rounds the int4
+     weight q*s to bf16 must fail the tolerance; then its times at the
+     target's shapes at M 16, 28 and 512 beside their bounds, the plain
+     version's, the library call's that computes the same function with
+     bf16 scales (torch._weight_int8pack_mm, torch._weight_int4pack_mm;
+     held against the plain version first), and cuBLAS's bf16 matmul on
+     the unquantized weight;
  10. full-width quantized serving: Llama-2-7B-Chat and its drafter drawn in
      float32, AWQ-calibrated on datagen batches of the target, quantized to
      int8 and then to int4 weights, with int8 KV caches; tree (2, 2) and
@@ -66,8 +70,10 @@ Phases, each printing one JSON line:
      reference's --quick sizes: pretraining, chat-SFT, datagen, KLD/TVD/
      TVD++ fine-tuning, tau and MBSU;
  14. the training CLI (``repro_torch.launch.train --reduced``), pretrain
-     and TVD++ distill, 50 steps each, in subprocesses.
-Phases 10, 11, 13 and 14 run before phase 9. Then the ``kernels`` line, the
+     and TVD++ distill, 50 steps each, in subprocesses;
+ 15. tree serving of the reduced config (head dim 32) through the serving
+     CLI in a subprocess, its tree_attention launches counted.
+Phases 10, 11 and 13-15 run before phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
 non-zero exit code and no result line.
@@ -78,6 +84,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -170,6 +177,33 @@ def tree_bound_ms(q, k, v, mask):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+PTXAS_USE = re.compile(r"Used (\d+) registers.*?(?:, (\d+) bytes smem)?$")
+PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_report(log):
+    """Each kernel instance of nvcc's -Xptxas -v output (demangled where
+    c++filt exists) with its registers, static shared memory and spill
+    bytes."""
+    names, rows, spill = [], [], (0, 0)
+    for ln in log.splitlines():
+        if m := PTXAS_ENTRY.search(ln):
+            names.append(m[1])
+            spill = (0, 0)
+        elif m := PTXAS_SPILL.search(ln):
+            spill = (int(m[1]), int(m[2]))
+        elif (m := PTXAS_USE.search(ln)) and names:
+            rows.append([names[-1], int(m[1]), int(m[2] or 0), *spill])
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout
+        for r, name in zip(rows, out.splitlines()):
+            r[0] = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return [f"{n}: {r} registers, {sm} B static smem, spills {st}/{ld} B"
+            for n, r, sm, st, ld in rows]
+
+
 def phase1_device_and_build():
     from repro_torch.kernels import build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -180,9 +214,7 @@ def phase1_device_and_build():
     t0 = time.perf_counter()
     logs = build.build_all(sorted({Path(src).stem
                                    for _, src, _ in KERNEL_ROUTES.values()}))
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, log in logs.items()}
+    ptxas = {name: ptxas_report(log) for name, log in logs.items()}
     emit({"phase": 1, "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_s": round(time.perf_counter() - t0, 3), "ptxas": ptxas})
@@ -193,7 +225,10 @@ def phase2_kernels():
     """Every kernel against its plain version at the serving shapes: target
     verify (Hkv 32, N 7), drafter levels (Hkv 8, N 1/2/4), G 3, a ragged
     cache width (201 = 128 + 64 + 7 + 2) and a tiled one (1024), bf16 and
-    f32, once with softcap."""
+    f32, once with softcap; every other head dim the reference takes (the
+    reduced config's 32, the pipeline drafter's 16, gemma2_9b's 256) and a
+    tree of 13 nodes at G 3. A second input set run twice must give equal
+    outputs (the split combine is in a fixed order)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import tree_attention as tk
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -209,6 +244,10 @@ def phase2_kernels():
         ("gqa", 4, 8, 7, 3, 128, 201, bf, None),
         ("gqa", 2, 4, 7, 3, 64, 1024, f32, None),
         ("softcap", 4, 32, 7, 1, 128, 201, bf, 50.0),
+        *[(f"hd{hd}", 4, hkv, 7, G, hd, 201, dt, None)
+          for hd, hkv, G in ((16, 2, 2), (32, 4, 1), (256, 8, 2))
+          for dt in (bf, f32)],
+        ("N13-G3", 2, 4, 13, 3, 128, 201, bf, None),
     ]
     results = []
     for label, B, Hkv, N, G, hd, S, dtype, cap in cases:
@@ -226,6 +265,17 @@ def phase2_kernels():
             emit({"phase": 2, "cases": results})
             raise AssertionError(f"tree_attention disagrees with its plain "
                                  f"version: {results[-1]}")
+    # a second input set, run twice, on shapes whose slots are split
+    # across blocks (tensor cores and CUDA cores)
+    deterministic = True
+    for B, Hkv, N, G, hd, S, dtype in ((4, 8, 2, 1, 128, 1024, bf),
+                                        (4, 32, 7, 1, 128, 1024, f32)):
+        second = tree_inputs(gen, B, Hkv, N, G, hd, S, dtype)
+        assert tk.plan(B, Hkv, N, G, hd, S, second[0].element_size(),
+                       tk._sm_count(0))[1] > 1
+        deterministic &= torch.equal(tk.tree_attention(*second),
+                                     tk.tree_attention(*second))
+    assert deterministic, "tree_attention differs between two runs"
 
     # timing at the main path's shape (target verify, bf16, S 201), rotating
     # over enough input sets to exceed the 50 MB L2 as the serving loop does
@@ -250,8 +300,10 @@ def phase2_kernels():
     dev["kernel_repeat"] = graph_ms(rotate(tk.tree_attention))
     eager = {name: cuda_ms(rotate(fn), iters=200) for name, fn in fns.items()}
     bound_ms, bound_by = tree_bound_ms(*sets[0])
-    emit({"phase": 2, "cases": results,
+    chunk, splits = tk.plan(4, 32, 7, 1, 128, 201, 2, tk._sm_count(0))
+    emit({"phase": 2, "cases": results, "deterministic": deterministic,
           "timing_shape": "B4 Hkv32 N7 G1 hd128 S201 bf16, 8 input sets",
+          "splits": splits, "chunk": chunk,
           "device_ms": dev, "eager_call_ms": eager,
           "bound_ms": bound_ms, "bound_by": bound_by})
     return {"tree_attention": {"max_abs_err": results[0]["max_abs_err"],
@@ -877,12 +929,12 @@ def quant_bound_ms(M, K, N, bits, x_dtype=torch.bfloat16):
 
 def time_quant_shape(gen, K, N, bits, Ms=(16, 28, 512)):
     """Device times at one target shape: the kernel, its plain version, the
-    library call that computes the same function (at the decode shapes;
-    torch._weight_int8pack_mm or torch._weight_int4pack_mm, bf16 scales),
+    library call that computes the same function
+    (torch._weight_int8pack_mm or torch._weight_int4pack_mm, bf16 scales),
     and cuBLAS's bf16 matmul on an unquantized weight of the same shape,
-    each over enough weight sets to exceed the L2. The library call is
-    first held against the plain version. M 512 (prefill) is bound by
-    operations and slow on the CUDA cores: 10 calls a graph."""
+    each over enough weight sets to exceed the L2. The library call is first held against
+    the plain version. M 512 (prefill): 10 calls a graph (the int8 library
+    call takes up to 0.15 s there)."""
     from repro_torch.kernels import quant_matmul as qk
     from repro_torch.kernels import ref
     qbytes = K * N if bits == 8 else K * N // 2
@@ -922,8 +974,7 @@ def time_quant_shape(gen, K, N, bits, Ms=(16, 28, 512)):
                "plain": (lambda i: ref.ref_quant_matmul(xs[i], qs[i], scales[i],
                                                         bits, QUANT_GROUP), n_q),
                "cublas_bf16": (lambda i: xs[i] @ ws[i], n_w)}
-        if M <= 28:
-            fns["library"] = (lambda i: lib_fn(xs[i], lib[i][0]), n_q)
+        fns["library"] = (lambda i: lib_fn(xs[i], lib[i][0]), n_q)
         iters = 10 if M > 28 else 50
         dev = {name: graph_ms(rotate(fn, n), iters=iters)
                for name, (fn, n) in fns.items()}
@@ -933,7 +984,7 @@ def time_quant_shape(gen, K, N, bits, Ms=(16, 28, 512)):
                   "weight_sets": n_q}
     out["library"] = {"call": f"torch._weight_int{bits}pack_mm",
                       "max_abs_err_vs_plain": lib_err, "tol": lib_tol,
-                      "timed_at": [M for M in Ms if M <= 28]}
+                      "timed_at": list(Ms)}
     return out
 
 
@@ -941,6 +992,7 @@ def phase9_quant_kernels():
     """The quantized matmul against its plain version in every case (every
     (K, N) of both models at every M of phase 10), then its device times at
     the target's shapes at M 16, 28 and 512."""
+    from repro_torch.kernels import quant_matmul as qk
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = quant_pass_rows()
     shapes = [("ragged", 192, 1001, (5,))] + [
@@ -969,11 +1021,26 @@ def phase9_quant_kernels():
                             raise AssertionError("quant_matmul disagrees with its "
                                                  "plain version")
                 del qw
+    row_checks = check_rows_independent_of_m(gen)
+    rows_ok = all(r["M4"] and r["M16"] and r["M512"] for r in row_checks)
+    copy_checks = check_bf16_weight_copy(gen)
+    copy_caught = not any(r["passes"] for r in copy_checks)
+    if not (rows_ok and copy_caught):
+        emit({"phase": 9, "row_checks": row_checks, "bf16_weight_copy": copy_checks})
+    assert rows_ok, "a row's result depends on M"
+    assert copy_caught, "the tolerance passes an int4 kernel with bf16 weights"
     timing = {f"int{bits}:{name}": time_quant_shape(gen, K, N, bits)
               for name, K, N in QUANT_SHAPES["target"] for bits in (8, 4)}
     emit({"phase": 9, "cases": n_cases, "all_ok": True, "M": rows,
           "worst_rel_err": {f"int{b}/{d}": e for (b, d), e in worst.items()},
           "worst_rel_err_by_M": worst_m, "tolerance_rel": QUANT_TOL,
+          "rows_independent_of_M": {"checks": len(row_checks), "all_equal": rows_ok},
+          "bf16_weight_copy": {
+              "rel_err": {f"{r['shape']}/{r['dtype']}": r["rel_err"] for r in copy_checks},
+              "fails_tolerance": sum(not r["passes"] for r in copy_checks),
+              "of": len(copy_checks)},
+          "slices": {f"{m}:{name}": qk.plan(K, N, 8)[1]
+                     for m, lst in QUANT_SHAPES.items() for name, K, N in lst},
           "timing_note": "device ms per call, CUDA graph of 50 calls (M 512: 10), "
                          "x bf16; library and cuBLAS give bf16 outputs",
           "timing": timing})
@@ -987,6 +1054,101 @@ def phase9_quant_kernels():
             "ms": dev["kernel"], "plain_ms": dev["plain"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": dev.get("library")}
     return out
+
+
+def check_rows_independent_of_m(gen):
+    """For every (K, N) of the target and the drafter, both bit widths and
+    both x dtypes: the rows of an M 28 batch (the tree verify pass) must
+    come out bit for bit the same when they run in M 4 batches (the AR
+    pass), M 16 batches (the chain verify pass) and scattered through an
+    M 512 batch (the prefill). Greedy exactness (phases 5 and 11) rests on
+    this."""
+    from repro_torch.kernels import quant_matmul as qk
+    records = []
+    for model, lst in QUANT_SHAPES.items():
+        for name, K, N in lst:
+            for bits in (8, 4):
+                qw = quant_weight(gen, K, N, bits, awq=False)
+                for dtype in (torch.bfloat16, torch.float32):
+                    def run(x):
+                        return qk.quant_matmul(x.contiguous(), qw.q, qw.scale,
+                                               bits, qw.group)
+                    x28 = torch.randn((28, K), generator=gen, device="cuda").to(dtype)
+                    want = run(x28)
+                    in4 = all(torch.equal(run(x28[i:i + 4]), want[i:i + 4])
+                              for i in range(0, 28, 4))
+                    in16 = (torch.equal(run(x28[:16]), want[:16])
+                            and torch.equal(run(x28[12:]), want[12:]))
+                    big = torch.randn((512, K), generator=gen, device="cuda").to(dtype)
+                    pos = torch.randperm(512, generator=torch.Generator().manual_seed(K + N),
+                                         device="cpu")[:28].cuda()
+                    big[pos] = x28
+                    in512 = torch.equal(run(big)[pos], want)
+                    records.append({"shape": f"{model}:{name}", "bits": bits,
+                                    "dtype": str(dtype).split(".")[-1],
+                                    "M4": in4, "M16": in16, "M512": in512})
+                del qw
+    return records
+
+
+QM_WIDEN_INT4 = re.compile(r"s4pair\((p[ab]), p[ab]4, (2 \* i(?: \+ 1)?)\)")
+QM_SCALE_INT4 = re.compile(r"fmaf\((p\[i\]\[\d\]), s_(?:lo|hi), (acc\[i\]\[j\]\[\d\])\)")
+QM_BF16_WEIGHT = """
+__device__ __forceinline__ uint32_t s4scaled(uint32_t u, int c, float4 s) {
+  const float sv = c == 0 ? s.x : c == 1 ? s.y : c == 2 ? s.z : s.w;
+  const uint32_t b = u >> (8 * c);
+  return pack_bf16((float)((int)(b & 0xFu) - 8) * sv,
+                   (float)((int)((b >> 4) & 0xFu) - 8) * sv);
+}
+"""
+
+
+def bf16_weight_copy():
+    """A copy of the kernel that forms the int4 weight q*s and rounds it to
+    bf16 before the product (and skips the exact per-group scaling), built
+    beside the real one from a text substitution: the tolerance must see
+    the error that shortcut makes."""
+    import ctypes
+    from repro_torch.kernels import build
+    src = (ROOT / QUANT_CU).read_text()
+    anchor = "// x, transposed, as the B fragment"
+    src, n_widen = QM_WIDEN_INT4.subn(r"s4scaled(\1, \2, sc[st])", src)
+    src, n_scale = QM_SCALE_INT4.subn(r"(\1 + \2)", src)
+    assert n_widen == 4 and n_scale == 4 and src.count(anchor) == 1, \
+        ("the int4 widening or scaling lines moved", n_widen, n_scale)
+    src = src.replace(anchor, QM_BF16_WEIGHT + anchor)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = build.BUILD_DIR / "quant_matmul_bf16_weight.cu"
+    so = build.BUILD_DIR / "libquant_matmul_bf16_weight.so"
+    cu.write_text(src)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                   check=True, capture_output=True, timeout=build.BUILD_TIMEOUT_S)
+    fn = ctypes.CDLL(str(so)).quant_matmul_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_bf16_weight_copy(gen):
+    """The bf16-weight copy against the plain version at every (K, N) of
+    the target and drafter, M 28, both x dtypes: it must fail QUANT_TOL in
+    every case."""
+    from unittest import mock
+    from repro_torch.kernels import quant_matmul as qk
+    copy_fn = bf16_weight_copy()
+    records = []
+    with mock.patch.object(qk, "_launcher", lambda: copy_fn):
+        for model, lst in QUANT_SHAPES.items():
+            for name, K, N in lst:
+                qw = quant_weight(gen, K, N, 4, awq=True)
+                x = torch.randn((28, K), generator=gen, device="cuda")
+                for dtype in (torch.bfloat16, torch.float32):
+                    err, tol, ok = check_quant_case(x.to(dtype), qw)
+                    records.append({"shape": f"{model}:{name}",
+                                    "dtype": str(dtype).split(".")[-1],
+                                    "rel_err": err / tol * QUANT_TOL, "passes": ok})
+                del qw
+    return records
 
 
 def quant_passes(cfg) -> int:
@@ -1482,6 +1644,31 @@ def phase14_train_cli(smi):
         runs["pretrain"]
 
 
+LAUNCH_LINE = re.compile(r"^kernel launches: (\{.*\})$", re.M)
+
+
+def phase15_reduced_tree_cli(smi):
+    """Tree serving of the reduced config (head dim 32) through the serving
+    CLI in a subprocess: it must exit 0 with tree_attention launches
+    counted (its printed counts) and no other kernel launched."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "llama2-7b-chat", "--reduced", "--tree", "--tree-depth", "2",
+           "--tree-branch", "2", "--temperature", "0.7"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    found = LAUNCH_LINE.search(proc.stdout)
+    launches = json.loads(found[1]) if found else None
+    run = {"cmd": " ".join(cmd[1:]), "rc": proc.returncode,
+           "s": time.perf_counter() - t0, "launches": launches,
+           "stdout": proc.stdout.strip().splitlines()[-6:],
+           "stderr": proc.stderr.strip().splitlines()[-3:]}
+    emit({"phase": 15, "head_dim": 32, "run": run, "nvidia_smi": smi})
+    assert proc.returncode == 0 and launches is not None, run
+    assert launches["tree_attention"] > 0, run
+    assert all(n == 0 for k, n in launches.items() if k != "tree_attention"), run
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1521,6 +1708,7 @@ def main():
     phase13_pipeline(smi)
     torch.cuda.empty_cache()
     phase14_train_cli(smi)
+    phase15_reduced_tree_cli(smi)
     timings.update(phase9_quant_kernels())
     kernels = []
     for name, (route, source, replaces) in KERNEL_ROUTES.items():

@@ -4,10 +4,17 @@ the Hopper kernel that replaces the TPU kernel
 ``_tree_kernel``).
 
 It scores all N nodes of a draft tree in one launch, each under its own
-(B, N, S) ancestor mask, with an online softmax over KV tiles; output is
-fp32 (B, Hkv, N, G, hd). Any S is allowed. The plain version is
-``kernels.ref.ref_tree_attention``; ``kernels.ops.tree_verify_attention``
-chooses between the two by the device of its inputs.
+(B, N, S) ancestor mask, with an online softmax over the slots; the N*G
+query rows of a KV head share each K/V read. bf16 at head dims 32-128
+runs on the tensor cores, everything else on the CUDA cores. Where the
+heads alone would leave SMs idle, the slots of a (batch, kv head) are
+split across blocks (``plan``, as ``kernels.flash_decode`` does) and the
+blocks' partial states combined by a second kernel in a fixed order.
+Head dims 16, 32, 64, 128 and 256; output is fp32 (B, Hkv, N, G, hd);
+any S is allowed. The
+plain version is ``kernels.ref.ref_tree_attention``;
+``kernels.ops.tree_verify_attention`` chooses between the two by the
+device of its inputs.
 """
 from __future__ import annotations
 
@@ -18,18 +25,70 @@ import torch
 
 from . import build
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# as csrc/tree_attention.cu: the CUDA-core kernel's threads and slots per
+# lane group and step; the tensor-core kernel's threads, query rows a block
+# and slots a warp and step
+THREADS, UNROLL = 128, 4
+MMA_THREADS, MMA_ROWS, MMA_CHUNK = 256, 16, 16
+# the split count aims at about this many blocks per SM (CUDA cores:
+# rounded up; tensor cores: rounded down, its blocks being heavier)
+BLOCKS_PER_SM = (4, 1)
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     """The C entry point, built and typed once per process."""
     fn = build.load("tree_attention").tree_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def on_tensor_cores(hd: int, itemsize: int) -> bool:
+    """bf16 at head dims 32 to 128 runs the tensor-core kernel."""
+    return itemsize == 2 and 32 <= hd <= 128
+
+
+def rows_per_block(rows: int, hd: int, itemsize: int) -> int:
+    """Query rows (of the N*G of a KV head) a block holds: 16 on the tensor
+    cores, else the instances 1, 2, 4 and 8."""
+    if on_tensor_cores(hd, itemsize):
+        return MMA_ROWS
+    return 1 if rows == 1 else 2 if rows == 2 else 4 if rows <= 4 else 8
+
+
+def step_slots(hd: int, itemsize: int) -> int:
+    """Slots a block reads per step of its loop."""
+    if on_tensor_cores(hd, itemsize):
+        return MMA_THREADS // 32 * MMA_CHUNK
+    lanes = min(32, hd * itemsize // 16)          # lanes reading one slot
+    return THREADS // lanes * UNROLL
+
+
+def plan(B, Hkv, N, G, hd, S, itemsize, sms):
+    """(chunk, splits): slots per block, rounded up to whole steps of the
+    block's loop, and blocks per (batch, kv head, row tile), so that the
+    grid holds about ``BLOCKS_PER_SM`` blocks per SM while every block
+    walks at least two steps."""
+    mma = on_tensor_cores(hd, itemsize)
+    step = step_slots(hd, itemsize)
+    blocks = B * Hkv * -(-(N * G) // rows_per_block(N * G, hd, itemsize))
+    if mma:
+        want = max(1, BLOCKS_PER_SM[mma] * sms // blocks)
+    else:
+        want = -(-BLOCKS_PER_SM[mma] * sms // blocks)
+    splits = max(1, min(want, -(-S // (2 * step))))
+    chunk = -(-S // splits)
+    chunk = -(-chunk // step) * step
+    return chunk, -(-S // chunk)
 
 
 def _check(q, k, v, mask):
@@ -60,18 +119,25 @@ def _check(q, k, v, mask):
 
 def tree_attention(q, k, v, mask, softcap=None):
     """q (B, Hkv, N, G, hd), k/v (B, S, Hkv, hd), mask (B, N, S) bool, all
-    on one CUDA device -> fp32 (B, Hkv, N, G, hd). Launches the kernel on
-    the current stream; raises if the inputs do not fit it or the launch
+    on one CUDA device -> fp32 (B, Hkv, N, G, hd). Launches the kernels on
+    the current stream; raises if the inputs do not fit them or a launch
     fails."""
     _check(q, k, v, mask)
     B, Hkv, N, G, hd = q.shape
+    S = k.shape[1]
+    chunk, splits = plan(B, Hkv, N, G, hd, S, q.element_size(),
+                         _sm_count(q.device.index or 0))
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    part = None
+    if splits > 1:
+        part = torch.empty((B * Hkv * N * G, splits, hd + 2),
+                           dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), B, k.shape[1], Hkv, N, G, hd,
-            _DTYPE_CODES[q.dtype], softcap is not None,
-            0.0 if softcap is None else float(softcap),
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            B, S, Hkv, N, G, hd, _DTYPE_CODES[q.dtype], chunk, splits,
+            softcap is not None, 0.0 if softcap is None else float(softcap),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"tree_attention launch failed with CUDA error {err}")

@@ -30,6 +30,7 @@ the small same-family variant (CPU smoke runs).
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ from ..configs import ARCHS, QuantConfig, get_config, reduced
 from ..core.datagen import DatagenConfig, generate_distillation_dataset
 from ..core.metrics import mbsu
 from ..core.speculative import SDConfig
+from ..kernels import ops
 from ..models.model import Model
 from ..quant import cast_unquantized, params_nbytes, quantize_params
 from ..serving.engine import Request, ServingEngine
@@ -189,8 +191,10 @@ def main(argv=None):
         spec = TreeSpec((args.tree_branch,) * args.tree_depth)
         print(f"tree: branching={spec.branching} nodes={spec.num_nodes} "
               f"(chain-equivalent gamma={spec.num_draft_nodes})")
+        ops.reset_launches()
         toks, stats = serve_tree(target, t_params, draft, d_params, prompts,
                                  args.max_new, sdc, spec)
+        launches = dict(ops.LAUNCHES)
         # MBSU's draft-cost term counts sequential draft passes: a tree
         # round runs depth+1 batched level passes (chain analogue: gamma)
         print(f"tree SD: tau={stats.tau:.3f} "
@@ -203,15 +207,19 @@ def main(argv=None):
         for b in range(min(args.requests, 2)):
             row = toks[b, P:P + min(args.max_new, 16)].cpu().numpy()
             print(f"  row {b}: {row} ...")
+        print(f"kernel launches: {json.dumps(launches)}")
         return
 
+    ops.reset_launches()
     results, tau, tok_s = serve_static(
         target, t_params, None if args.no_draft else draft,
         None if args.no_draft else d_params, prompts, args.max_new, sdc)
+    launches = dict(ops.LAUNCHES)
     print(f"served {len(results)} requests; tau={tau:.3f} "
           f"MBSU={mbsu(tau, c, args.gamma):.3f} {tok_s:.1f} tok/s")
     for r in results[:2]:
         print(f"  req {r.request_id}: {r.tokens[:16]} ... {r.wall_time_s:.2f}s")
+    print(f"kernel launches: {json.dumps(launches)}")
 
 
 if __name__ == "__main__":

@@ -8,6 +8,7 @@ both round half to even. The plain ``dequant_matmul`` is held to the
 reference's Pallas kernel in interpret mode within 1e-5 of the output's
 scale (float32 sums in another order); activation stats within 1e-5
 relative (float32 forwards in another order)."""
+import inspect
 import re
 
 import jax
@@ -32,6 +33,7 @@ from repro_torch.checkpoint import io as tio
 from repro_torch.configs import QuantConfig
 from repro_torch.configs import get_config as tget_config
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quant_matmul as qk
 from repro_torch.models.model import Model as TModel
 from repro_torch.quant import QWeight, calib, qweight, roofline
 from torch_parity import port_config, tensor
@@ -104,6 +106,69 @@ def test_plain_dequant_matmul_matches_interpret_kernel(bits, group, M, x_dtype):
         np.testing.assert_allclose(plain, kernel, rtol=0, atol=REL * scale)
         np.testing.assert_allclose(plain, oracle, rtol=0, atol=REL * scale)
     assert all(n == 0 for n in ops.LAUNCHES.values())    # CPU: plain version
+
+
+# ------------------------------------------------------ the CUDA wrapper
+
+# (K, N) of every quantized matmul of the 7B target and its drafter, a
+# ragged shape, and narrow and deep ones
+PLAN_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+               (1024, 1024), (1024, 2816), (2816, 1024), (1024, 32000),
+               (192, 1001), (128, 16), (65536, 64)]
+
+
+@pytest.mark.parametrize("K,N,bits,group", [
+    (K, N, bits, group) for K, N in PLAN_SHAPES
+    for bits, group in ((8, 0), (4, 32), (4, 64), (4, 128), (4, 512))
+    if bits == 8 or K % group == 0])
+def test_split_plan_covers_k_once_with_whole_groups(K, N, bits, group):
+    """Each K row lies in exactly one slice, slices are whole stages of the
+    kernel, no slice is empty, int4 groups never straddle two slices, and
+    the plan has no argument M: every batch size runs the same sums."""
+    assert "M" not in inspect.signature(qk.plan).parameters
+    chunk, slices = qk.plan(K, N, bits, group)
+    assert chunk % qk.BK == 0 and slices == -(-K // chunk)
+    covered = np.zeros(K, dtype=int)
+    for z in range(slices):
+        covered[z * chunk:min(K, (z + 1) * chunk)] += 1
+    assert (covered == 1).all() and (slices - 1) * chunk < K
+    if bits == 4:
+        assert chunk % group == 0
+    blocks = -(-N // qk.BN) * slices
+    assert slices == 1 or blocks <= qk.TARGET_BLOCKS + -(-N // qk.BN)
+
+
+@pytest.mark.parametrize("case", ["cpu", "bits", "x_rank", "q_shape",
+                                  "scale_shape", "group16", "x_dtype",
+                                  "q_dtype", "scale_dtype", "layout"])
+def test_kernel_wrapper_rejects_what_it_cannot_launch(case):
+    """Every case fails the checks before any build or launch: on the CPU
+    the kernel computes nothing and never quietly takes other inputs."""
+    K, N, bits, group = 128, 48, 4, 64
+    qw = qweight.quantize_weight(torch.from_numpy(rng_weight(5, K, N)),
+                                 bits=bits, group=group)
+    x, q, scale = torch.ones((3, K)), qw.q, qw.scale
+    if case == "bits":
+        bits = 2
+    elif case == "x_rank":
+        x = x[None]
+    elif case == "q_shape":
+        q = q[:-1]
+    elif case == "scale_shape":
+        scale = scale[:, :-1]
+    elif case == "group16":            # no multiple of 16: a k16 step
+        group = 8                      # would straddle two groups
+        scale = torch.ones((K // group, N))
+    elif case == "x_dtype":
+        x = x.double()
+    elif case == "q_dtype":
+        q = q.to(torch.int8)
+    elif case == "scale_dtype":
+        scale = scale.double()
+    elif case == "layout":
+        x = torch.ones((K, 3)).t()
+    with pytest.raises(ValueError):
+        qk.quant_matmul(x, q, scale, bits, group)
 
 
 def test_ref_dequant_unpacks_the_reference_layout():

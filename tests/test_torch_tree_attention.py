@@ -35,10 +35,10 @@ def _port(q, k, v, mask, softcap=None, dtype=torch.float32):
                                    softcap).numpy()
 
 
-# (hd, G, N, S): every hd in {16, 64, 128}, G in {1, 3}, N in {1, 7, 13}
-# and S in {128, 256} appears at least once.
-SWEEP = [(16, 1, 1, 128), (16, 3, 13, 256), (64, 1, 7, 256),
-         (64, 3, 1, 128), (128, 1, 13, 128), (128, 3, 7, 256)]
+# (hd, G, N, S): every hd the kernel takes (16, 32, 64, 128, 256), G in
+# {1, 3}, N in {1, 7, 13} and S in {128, 256} appears at least once.
+SWEEP = [(16, 1, 1, 128), (16, 3, 13, 256), (32, 3, 7, 128), (64, 1, 7, 256),
+         (64, 3, 1, 128), (128, 1, 13, 128), (128, 3, 7, 256), (256, 1, 7, 128)]
 
 
 @pytest.mark.parametrize("hd,G,N,S", SWEEP)
@@ -83,11 +83,11 @@ def test_wrapper_sends_cpu_tensors_to_plain_version_uncounted():
     assert torch.equal(out, tref.ref_tree_attention(q, k, v, mask, 20.0))
 
 
-@pytest.mark.parametrize("case", ["cpu", "hd32", "dtype", "mask", "layout"])
+@pytest.mark.parametrize("case", ["cpu", "hd48", "dtype", "mask", "layout"])
 def test_kernel_wrapper_rejects_what_it_cannot_launch(case):
     q, k, v, mask = (torch.from_numpy(a) for a in _inputs(3, 1, 2, 3, 1, 64, 40))
-    if case == "hd32":
-        q, k, v = q[..., :32], k[..., :32], v[..., :32]
+    if case == "hd48":                    # a head dim no instance takes
+        q, k, v = q[..., :48], k[..., :48], v[..., :48]
     elif case == "dtype":
         q = q.double()
     elif case == "mask":
@@ -98,3 +98,39 @@ def test_kernel_wrapper_rejects_what_it_cannot_launch(case):
     # computes nothing on the CPU and never quietly takes other inputs
     with pytest.raises(ValueError):
         tk.tree_attention(q, k, v, mask)
+
+
+def test_kernel_takes_every_head_dim_of_the_reference():
+    assert tk.HEAD_DIMS == (16, 32, 64, 128, 256)
+
+
+@pytest.mark.parametrize("B,Hkv,N,G,hd,S,itemsize", [
+    (4, 32, 7, 1, 128, 201, 2), (4, 32, 7, 1, 128, 1024, 4), (4, 8, 1, 1, 128, 201, 2),
+    (4, 8, 4, 1, 128, 201, 4), (4, 8, 7, 3, 128, 201, 2), (2, 4, 13, 3, 64, 300, 4),
+    (4, 2, 7, 2, 16, 201, 2), (4, 2, 7, 3, 32, 197, 4), (2, 4, 7, 2, 256, 512, 4),
+    (1, 2, 1, 1, 128, 1, 4), (1, 1, 3, 1, 64, 40000, 2)])
+def test_split_plan_covers_every_slot_once(B, Hkv, N, G, hd, S, itemsize):
+    """The split plan tiles [0, S) in whole steps of the block's loop, no
+    split empty, and gives the grid at least half of BLOCKS_PER_SM blocks
+    per SM where S allows (rounding the chunk up to whole steps may drop
+    some splits)."""
+    chunk, splits = tk.plan(B, Hkv, N, G, hd, S, itemsize, 132)
+    assert tk.plan(4, 32, 7, 1, 128, 201, 2, 132) == (256, 1)   # target verify
+    step = tk.step_slots(hd, itemsize)
+    mma = tk.on_tensor_cores(hd, itemsize)
+    assert step == (tk.MMA_THREADS // 32 * tk.MMA_CHUNK if mma else
+                    tk.THREADS // min(32, hd * itemsize // 16) * tk.UNROLL)
+    assert chunk % step == 0 and chunk >= step
+    assert splits == -(-S // chunk) and (splits - 1) * chunk < S
+    covered = np.zeros(S, dtype=int)
+    for z in range(splits):
+        covered[z * chunk:min(S, (z + 1) * chunk)] += 1
+    assert (covered == 1).all()
+    rows = N * G
+    rt = tk.rows_per_block(rows, hd, itemsize)
+    blocks = B * Hkv * -(-rows // rt) * splits
+    assert rt == 16 if mma else rt in (1, 2, 4, 8) and rt >= min(rows, 8)
+    bps = tk.BLOCKS_PER_SM[mma]
+    assert splits == 1 or blocks <= bps * 132 + B * Hkv * rows
+    if S >= 2 * step * bps * 132:
+        assert 2 * blocks >= bps * 132
