@@ -7,7 +7,9 @@ Phases, each printing one JSON line:
      from ``src/repro_torch/kernels/csrc`` with nvcc (one process each);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes of the serving path and at every head dim the reference takes
-     (16-256), a second input set run twice for equal outputs, and its time
+     (16-256), the continuous path's paged views (B 8, 128-304 slots,
+     null-page columns, rows 2-7 fully masked and finite), a second input
+     set run twice for equal outputs, and its time
      beside its bound, the plain version's and one PyTorch library call's;
   3. full-width tree-speculative serving: Llama-2-7B-Chat with the 115M
      drafter in bf16, random weights from fixed seeds, 4 requests, prompt
@@ -72,8 +74,32 @@ Phases, each printing one JSON line:
  14. the training CLI (``repro_torch.launch.train --reduced``), pretrain
      and TVD++ distill, 50 steps each, in subprocesses;
  15. tree serving of the reduced config (head dim 32) through the serving
-     CLI in a subprocess, its tree_attention launches counted.
-Phases 10, 11 and 13-15 run before phase 9. Then the ``kernels`` line, the
+     CLI in a subprocess, its tree_attention launches counted;
+ 16. continuous serving of the full-width pair (after phase 12, on phase
+     3's models): 16 chat-mix requests (Poisson arrivals at 4/s, 48-64
+     prompt tokens with a 40-token shared preamble, 8-16 new tokens)
+     through ``ContinuousEngine`` with 8 slots, 16-slot pages and 32-token
+     prefill chunks, at temperature 0.7: tree (2, 2) with the prefix
+     cache, chain gamma 3 without it, and tree again with int8 KV pools;
+     then tree and chain with all 16 requests at t = 0 (the engine's own
+     throughput, not bounded by the arrival span); the script re-executes
+     itself with PYTHONHASHSEED=0 so that the chat mix's preamble, seeded
+     by hash(name), is the same in every run; every request must finish
+     with its max_new tokens and tree_attention must be launched 44 times
+     per tree round; tok/s beside the arrival span, tau, MBSU, TTFT/TPOT
+     p50/p99 (over 16 requests p99 is their maximum), queue and pool
+     telemetry, prefix hit rate, peak memory, and
+     host and device ms per decode round of 8 active rows (torch.profiler);
+ 17. greedy exactness of the continuous engine with 2 target layers in
+     float32: 4 requests of different lengths through 2 slots, chain and
+     tree, must give the static chain and tree generation's tokens with fp
+     KV, int8 KV and int8 weights on both models; the prefix cache on and
+     off must give the same tokens;
+ 18. the serving CLI's --continuous branch at full width in subprocesses
+     (16 chat-mix requests): tree with the prefix cache, int8 weights on
+     both models and int8 KV, then chain in bf16; each must serve all 16
+     requests, its printed kernel launches checked.
+Phases 10, 11, 13-15 and 18 run before phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
 non-zero exit code and no result line.
@@ -164,6 +190,74 @@ def tree_inputs(gen, B, Hkv, N, G, hd, S, dtype):
     return q, k, v, mask
 
 
+def paged_tree_inputs(gen, B, Hkv, N, hd, S, dtype, page=16, dev="cuda"):
+    """Tree attention's inputs as ``paged_decode_attention`` builds them
+    for B slots of which only rows 0 and 1 are active: K/V gathered through
+    a page table from a pool whose page 0 (the null page) is zero, row 1
+    sharing row 0's first two pages (a prefix-cache hit), table entries 0
+    past each row's length, and rows 2.. inactive (table all 0, mask all
+    False), as ``masked_page_table`` leaves them."""
+    P = 2 * (S // page) + 1
+    kpool = torch.randn((P, page, Hkv, hd), generator=gen, device=dev).to(dtype)
+    vpool = torch.randn((P, page, Hkv, hd), generator=gen, device=dev).to(dtype)
+    kpool[0], vpool[0] = 0, 0
+    lens = (S - page - 3, S // 2 + 5)
+    table = torch.zeros((B, S // page), dtype=torch.long, device=dev)
+    table[0, : -(-lens[0] // page)] = torch.arange(1, -(-lens[0] // page) + 1)
+    n1 = -(-lens[1] // page)
+    table[1, :2] = table[0, :2]
+    table[1, 2:n1] = torch.arange(P - (n1 - 2), P)
+    col = torch.arange(S, device=dev)
+    valid = (table.repeat_interleave(page, 1) != 0)
+    valid[:2] &= col[None] < torch.tensor(lens, device=dev)[:, None]
+    tree = torch.rand((B, N, S), generator=gen, device=dev) < 0.5
+    for b, L in enumerate(lens):
+        tree[b, :, : L - N] = True          # the committed prefix
+    mask = valid[:, None, :] & tree
+    q = torch.randn((B, Hkv, N, 1, hd), generator=gen, device=dev).to(dtype)
+    k = kpool[table].reshape(B, S, Hkv, hd)
+    v = vpool[table].reshape(B, S, Hkv, hd)
+    return q, k, v, mask
+
+
+def check_paged_tree_cases(gen):
+    """Tree attention at the continuous path's shapes (B 8, target verify
+    Hkv 32 N 7, drafter levels Hkv 8 N 1/2/4, views of 8, 13 and 19 pages
+    of 16 slots, widths that are not multiples of the split sizes) with
+    rows 2-7 fully masked: within TOL of the plain version, every row
+    finite. At least one shape must split its slots across blocks (the
+    combine then merges fully masked partials)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tree_attention as tk
+    results = []
+    for label, Hkv, N in (("paged-target", 32, 7), ("paged-drafter", 8, 1),
+                          ("paged-drafter", 8, 2), ("paged-drafter", 8, 4)):
+        for S in (128, 208, 304):
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, mask = paged_tree_inputs(gen, 8, Hkv, N, 128, S, dtype)
+                got = tk.tree_attention(q, k, v, mask)
+                want = ref.ref_tree_attention(q, k, v, mask)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                masked_finite = bool(torch.isfinite(got[2:]).all())
+                ok = (bool(torch.isfinite(got).all()) and masked_finite
+                      and err <= TOL[dtype])
+                splits = tk.plan(8, Hkv, N, 1, 128, S, q.element_size(),
+                                 tk._sm_count(0))[1]
+                results.append({"case": label, "B": 8, "Hkv": Hkv, "N": N,
+                                "G": 1, "hd": 128, "S": S, "page": 16,
+                                "dtype": str(dtype).split(".")[-1],
+                                "splits": splits, "masked_rows": "2-7",
+                                "masked_rows_finite": masked_finite,
+                                "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
+                if not ok:
+                    emit({"phase": 2, "paged_cases": results})
+                    raise AssertionError(f"tree_attention disagrees with its "
+                                         f"plain version: {results[-1]}")
+    assert any(r["splits"] > 1 for r in results), results
+    return results
+
+
 def tree_bound_ms(q, k, v, mask):
     """Least time for the card: each input read once, the fp32 output
     written once, against 4*hd flops per (query row, slot)."""
@@ -228,7 +322,8 @@ def phase2_kernels():
     f32, once with softcap; every other head dim the reference takes (the
     reduced config's 32, the pipeline drafter's 16, gemma2_9b's 256) and a
     tree of 13 nodes at G 3. A second input set run twice must give equal
-    outputs (the split combine is in a fixed order)."""
+    outputs (the split combine is in a fixed order). Then the continuous
+    path's paged views with whole batches of fully masked rows."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import tree_attention as tk
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -276,6 +371,7 @@ def phase2_kernels():
         deterministic &= torch.equal(tk.tree_attention(*second),
                                      tk.tree_attention(*second))
     assert deterministic, "tree_attention differs between two runs"
+    paged = check_paged_tree_cases(gen)
 
     # timing at the main path's shape (target verify, bf16, S 201), rotating
     # over enough input sets to exceed the 50 MB L2 as the serving loop does
@@ -301,7 +397,8 @@ def phase2_kernels():
     eager = {name: cuda_ms(rotate(fn), iters=200) for name, fn in fns.items()}
     bound_ms, bound_by = tree_bound_ms(*sets[0])
     chunk, splits = tk.plan(4, 32, 7, 1, 128, 201, 2, tk._sm_count(0))
-    emit({"phase": 2, "cases": results, "deterministic": deterministic,
+    emit({"phase": 2, "cases": results, "paged_cases": paged,
+          "deterministic": deterministic,
           "timing_shape": "B4 Hkv32 N7 G1 hd128 S201 bf16, 8 input sets",
           "splits": splits, "chunk": chunk,
           "device_ms": dev, "eager_call_ms": eager,
@@ -356,7 +453,6 @@ def profile_tree(models, prompts, sdc, spec, wall_ms_per_round):
     """Where a tree round's time goes: device time by kernel over a short
     tree run under torch.profiler, against the unprofiled host time of a
     round. Prints None where the profiler saw no device activity."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     target, t_params, draft, d_params, _ = models
@@ -365,17 +461,25 @@ def profile_tree(models, prompts, sdc, spec, wall_ms_per_round):
         _, stats = serve.serve_tree(target, t_params, draft, d_params, prompts,
                                     16, sdc, spec, seed=2)
         torch.cuda.synchronize()
+    return kernel_breakdown(prof, stats.rounds, wall_ms_per_round)
+
+
+def kernel_breakdown(prof, rounds, wall_ms_per_round):
+    """Device time by kernel of ``rounds`` profiled rounds against the
+    unprofiled host time of a round. None where the profiler saw no device
+    activity."""
+    from torch.autograd import DeviceType
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in kernels)
     if not kernels or total_us <= 0:
         return {"profiled": None}
-    per_round_ms = total_us / 1e3 / stats.rounds
+    per_round_ms = total_us / 1e3 / rounds
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
 
     def share(pred):
         return sum(e.self_device_time_total for e in kernels if pred(e.key)) / total_us
 
-    return {"profiled_rounds": stats.rounds,
+    return {"profiled_rounds": rounds,
             "device_ms_per_round": per_round_ms,
             "wall_ms_per_round_unprofiled": wall_ms_per_round,
             "device_busy_share": per_round_ms / wall_ms_per_round,
@@ -1669,11 +1773,287 @@ def phase15_reduced_tree_cli(smi):
     assert all(n == 0 for k, n in launches.items() if k != "tree_attention"), run
 
 
+# ------------------------------------------------ continuous serving (16-17)
+
+CONT_MIX, CONT_N, CONT_RATE = "chat", 16, 4.0     # phase 16's request stream
+CONT_ENGINE = dict(max_batch=8, page_size=16, prefill_chunk=32)
+
+
+def chat_requests(n, rate, vocab, seed=0):
+    from repro_torch.traffic import make_mix
+    return make_mix(CONT_MIX).build(n, rate, vocab, seed=seed)
+
+
+def check_served(results, reqs, vocab):
+    """Every request finished with exactly its max_new tokens, in vocab."""
+    want = {r.request_id: r.max_new_tokens for r in reqs}
+    assert sorted(r.request_id for r in results) == sorted(want), results
+    for r in results:
+        assert len(r.tokens) == want[r.request_id], (r.request_id, len(r.tokens))
+        assert ((r.tokens >= 0) & (r.tokens < vocab)).all(), r.request_id
+
+
+def continuous_pass(models, sdc, spec, prefix, kv_quant, rate=CONT_RATE):
+    """One measured pass over the 16-request chat stream arriving at
+    ``rate`` requests/s (0: all at t = 0, the engine's own throughput),
+    launch counts set to 0 just before it and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    target, t_params, draft, d_params, c = models
+    V = target.cfg.vocab_size
+    # warm-up on two other requests, not counted
+    serve.serve_continuous(target, t_params, draft, d_params,
+                           chat_requests(2, 0.0, V, seed=1), sdc, spec,
+                           prefix_cache=prefix, kv_quant=kv_quant, **CONT_ENGINE)
+    reqs = chat_requests(CONT_N, rate, V)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    engine, results = serve.serve_continuous(target, t_params, draft, d_params,
+                                             reqs, sdc, spec, prefix_cache=prefix,
+                                             kv_quant=kv_quant, **CONT_ENGINE)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check_served(results, reqs, V)
+    depth = spec.depth if spec is not None else sdc.gamma
+    summary = serve.continuous_summary(engine, results, c, depth)
+    R = engine.telemetry.decode_rounds
+    per_round = (target.cfg.num_layers + draft.cfg.num_layers * (spec.depth + 1)
+                 if spec is not None else 0)
+    want = {k: 0 for k in launches}
+    want["tree_attention"] = R * per_round
+    assert R > 0 and launches == want, (launches, want)
+    assert summary["tau"] >= 1.0 and math.isfinite(summary["tau"]), summary
+    if prefix:
+        assert summary["prefix"]["hits"] > 0, summary["prefix"]
+    summary.update(arrival_rate=rate,
+                   arrival_span_s=max(r.arrival_time_s for r in reqs),
+                   launches=launches, tree_attention_per_round=per_round,
+                   num_pages=engine.num_pages, view_slots=engine.pool.max_pages_per_seq
+                   * engine.page_size,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return summary
+
+
+def profile_continuous(models, sdc, spec, rounds=4):
+    """Where a continuous decode round's time goes with all 8 slots in
+    decode: 8 chat-mix requests (max_new raised to 96 so that no row
+    retires in the window) admitted at t = 0 and prefilled, then ``rounds``
+    engine steps (each one decode round) on the host clock, synchronised,
+    and ``rounds`` more under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ContinuousEngine
+    target, t_params, draft, d_params, _ = models
+    reqs = chat_requests(8, 0.0, target.cfg.vocab_size, seed=2)
+    for r in reqs:
+        r.max_new_tokens = 96
+    engine = ContinuousEngine(target=target, target_params=t_params, draft=draft,
+                              draft_params=d_params, sd=sdc, tree=spec,
+                              max_seq_len=max(len(r.prompt) + 96 for r in reqs),
+                              **CONT_ENGINE)
+    for r in reqs:
+        engine.submit(r)
+    while any(s.state != "decode" for s in engine._slots):
+        engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        engine.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    launches_per_round = ops.LAUNCHES["tree_attention"] / rounds
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            engine.step()
+        torch.cuda.synchronize()
+    assert all(s.state == "decode" for s in engine._slots)
+    out = kernel_breakdown(prof, rounds, wall_ms)
+    out.update(active_rows=8, tree_attention_launches_per_round=launches_per_round)
+    return out
+
+
+def phase16_continuous_serving(models, smi):
+    """Continuous serving of the full-width pair at temperature 0.7: tree
+    (2, 2) with the prefix cache, chain gamma 3 without it, and tree with
+    int8 KV pools and the prefix cache, on Poisson arrivals; then tree and
+    chain again with all 16 requests at t = 0, where tok/s is the engine's
+    own rather than bounded by the arrival span. Latency p99 over 16
+    requests is their maximum."""
+    from repro_torch.core.speculative import SDConfig
+    from repro_torch.spectree.tree import TreeSpec
+    assert os.environ.get("PYTHONHASHSEED") == "0"   # the chat mix's preamble
+    spec = TreeSpec((2, 2))
+    t0 = time.perf_counter()
+    out = {}
+    for name, sdc, tree, prefix, rate in (
+            ("tree", SDConfig(gamma=3, temperature=0.7), spec, True, CONT_RATE),
+            ("chain", SDConfig(gamma=3, temperature=0.7), None, False, CONT_RATE),
+            ("tree_int8kv", SDConfig(gamma=3, temperature=0.7, kv_quant=True),
+             spec, True, CONT_RATE),
+            ("tree_rate0", SDConfig(gamma=3, temperature=0.7), spec, True, 0.0),
+            ("chain_rate0", SDConfig(gamma=3, temperature=0.7), None, False, 0.0)):
+        out[name] = continuous_pass(models, sdc, tree, prefix, sdc.kv_quant, rate)
+    out["tree"]["where_the_time_goes"] = profile_continuous(
+        models, SDConfig(gamma=3, temperature=0.7), spec)
+    emit({"phase": 16, "mix": CONT_MIX, "requests": CONT_N,
+          "arrival_rate": CONT_RATE, "engine": CONT_ENGINE, "temperature": 0.7,
+          "p99_is_max_of": CONT_N,
+          "arch": models[0].cfg.name, "drafter": models[2].cfg.name,
+          "dtype": models[0].cfg.dtype, "passes": out,
+          "wall_s": time.perf_counter() - t0, "nvidia_smi": smi})
+    return out
+
+
+def phase17_continuous_greedy_exactness():
+    """Temperature 0 with 2 target layers in float32: the continuous
+    engine (4 requests of different lengths through 2 slots) must give the
+    static chain and tree generation's tokens, with fp KV, int8 KV, and
+    int8 weights on both models; prefix cache on and off must agree."""
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.core.speculative import SDConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.quant import quantize_params
+    from repro_torch.serving import (ContinuousEngine, Request, ServeRequest,
+                                     ServingEngine)
+    from repro_torch.spectree.round import tree_speculative_generate
+    from repro_torch.spectree.tree import TreeSpec
+    cfg = get_config("llama2-7b-chat").replace(num_layers=2, dtype="float32")
+    V = cfg.vocab_size
+    rng = np.random.default_rng(17)
+    lens, news = (40, 64, 50, 57), (16, 12, 20, 14)
+    prompts = [rng.integers(3, V, L).astype(np.int64) for L in lens]
+    spec = TreeSpec((2, 2))
+
+    def continuous(target, tp, draft, dp, sdc, tree, reqs, **kw):
+        engine = ContinuousEngine(
+            target=target, target_params=tp, draft=draft, draft_params=dp,
+            sd=sdc, tree=tree, max_batch=2, page_size=16, prefill_chunk=32,
+            max_seq_len=max(len(r.prompt) + r.max_new_tokens for r in reqs),
+            kv_quant=sdc.kv_quant, **kw)
+        res = engine.serve(reqs)
+        assert engine.telemetry.max_queue_depth >= 1    # staggered admission
+        return {r.request_id: r.tokens for r in res}, engine
+
+    out, launches = {}, {}
+    for weights in ("fp", "int8"):
+        target, draft = Model(cfg, "cuda"), Model(cfg.drafter(), "cuda")
+        t_params, d_params = target.init(0), draft.init(1)
+        if weights == "int8":
+            calib = serve.calibration_tokens(target, t_params, 2, 32)
+            qcfg = QuantConfig(weights="int8")
+            t_params = quantize_params(target, t_params, qcfg, calib_tokens=calib)
+            d_params = quantize_params(draft, d_params, qcfg, calib_tokens=calib)
+        for kv in ((False, True) if weights == "fp" else (False,)):
+            sdc = SDConfig(gamma=3, temperature=0.0, kv_quant=kv)
+            static = {r.request_id: r.tokens for r in ServingEngine(
+                target=target, target_params=t_params, draft=draft,
+                draft_params=d_params, sd=sdc).serve(
+                    [Request(prompt=p, max_new_tokens=m, request_id=i)
+                     for i, (p, m) in enumerate(zip(prompts, news))])}
+            static_tree = {}
+            for i, (p, m) in enumerate(zip(prompts, news)):
+                toks, _ = tree_speculative_generate(
+                    draft, target, d_params, t_params,
+                    torch.as_tensor(p[None], device=target.device), m, sdc, spec)
+                static_tree[i] = toks[0, len(p):len(p) + m].cpu().numpy()
+            ops.reset_launches()
+            reqs = [ServeRequest(prompt=p, max_new_tokens=m, request_id=i)
+                    for i, (p, m) in enumerate(zip(prompts, news))]
+            chain, _ = continuous(target, t_params, draft, d_params, sdc, None, reqs)
+            tree, _ = continuous(target, t_params, draft, d_params, sdc, spec, reqs)
+            label = f"{weights}_weights_{'int8' if kv else 'fp'}_kv"
+            launches[label] = dict(ops.LAUNCHES)
+            ok = {name: all(np.array_equal(got[i], static[i]) for i in static)
+                  for name, got in (("static_tree", static_tree),
+                                    ("continuous_chain", chain),
+                                    ("continuous_tree", tree))}
+            out[label] = ok
+            emit({"phase": 17, "config": label, "equals_static_chain": ok})
+            assert all(ok.values()), (label, ok)
+            assert launches[label]["tree_attention"] > 0, launches[label]
+            if weights == "int8":
+                assert launches[label]["quant_matmul_int8"] > 0, launches[label]
+        if weights == "fp":
+            # prefix cache on against off, chain and tree, chat-mix prompts
+            reqs = chat_requests(6, 0.0, V)
+            sdc = SDConfig(gamma=3, temperature=0.0)
+            for tree_spec in (None, spec):
+                runs = [continuous(target, t_params, draft, d_params, sdc,
+                                   tree_spec, reqs, prefix_cache=on)
+                        for on in (False, True)]
+                hits = runs[1][1].prefix.tel.hits
+                same = all(np.array_equal(runs[0][0][i], runs[1][0][i])
+                           for i in runs[0][0])
+                label = f"prefix_{'tree' if tree_spec else 'chain'}"
+                out[label] = {"on_equals_off": same, "hits": hits,
+                              "hit_tokens": runs[1][1].prefix.tel.hit_tokens}
+                assert same and hits > 0, (label, out[label])
+        del target, draft, t_params, d_params
+        torch.cuda.empty_cache()
+    emit({"phase": 17, "arch": cfg.name, "target_layers": 2, "dtype": "float32",
+          "temperature": 0.0, "requests": len(prompts), "max_batch": 2,
+          "results": out, "launches": launches})
+    return launches
+
+
+CONT_LINE = re.compile(r"^continuous: (\d+) requests, (\d+) tokens", re.M)
+
+
+def phase18_continuous_cli(smi):
+    """The full-width pair through the serving CLI's --continuous branch in
+    subprocesses, on the chat mix (16 requests at 4/s, temperature 0.7):
+    tree with the prefix cache, int8 weights on both models and int8 KV
+    pools; then chain in bf16. Each must exit 0 having served 16 requests,
+    with its printed kernel launches: tree attention and the int8 matmul
+    for the first, no kernel for the chain."""
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "llama2-7b-chat", "--continuous", "--traffic-mix", CONT_MIX,
+            "--requests", str(CONT_N), "--arrival-rate", str(CONT_RATE),
+            "--temperature", "0.7"]
+    runs = {}
+    for name, extra, used in (
+            ("tree_int8", ["--tree", "--prefix-cache", "--quant-weights", "int8",
+                           "--quant-target", "--quant-kv"],
+             {"tree_attention", "quant_matmul_int8"}),
+            ("chain_bf16", [], set())):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + extra, capture_output=True, text=True,
+                              timeout=600, cwd=ROOT,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        found, served = LAUNCH_LINE.search(proc.stdout), CONT_LINE.search(proc.stdout)
+        run = runs[name] = {
+            "cmd": " ".join(base[1:] + extra), "rc": proc.returncode,
+            "s": time.perf_counter() - t0,
+            "launches": json.loads(found[1]) if found else None,
+            "requests": int(served[1]) if served else None,
+            "stdout": proc.stdout.strip().splitlines()[-10:],
+            "stderr": proc.stderr.strip().splitlines()[-3:]}
+        ok = (proc.returncode == 0 and run["launches"] is not None
+              and run["requests"] == CONT_N
+              and all((n > 0) == (k in used) for k, n in run["launches"].items()))
+        if not ok:
+            emit({"phase": 18, "runs": runs, "nvidia_smi": smi})
+            raise AssertionError(f"continuous CLI run {name} failed: {run}")
+    emit({"phase": 18, "runs": runs, "nvidia_smi": smi})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # the chat mix seeds its shared preamble with hash(name) (copied
+        # from the reference): fix the hash seed so every run serves the
+        # same request stream
+        os.execve(sys.executable, [sys.executable, str(Path(__file__).resolve()),
+                                   *sys.argv[1:]],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import serve
 
@@ -1688,9 +2068,12 @@ def main():
     assert serving_fd == 0, serving_fd
     launches["flash_decode"], fd_timing = phase12_flash_decode(models, smi)
     timings.update(fd_timing)
+    continuous = phase16_continuous_serving(models, smi)
     del models
     torch.cuda.empty_cache()
     phase5_greedy_exactness()
+    torch.cuda.empty_cache()
+    cont_exact = phase17_continuous_greedy_exactness()
     torch.cuda.empty_cache()
     timings.update(phase6_distill_kernels())
     launches.update({k: v for k, v in phase7_training(smi).items()
@@ -1709,6 +2092,7 @@ def main():
     torch.cuda.empty_cache()
     phase14_train_cli(smi)
     phase15_reduced_tree_cli(smi)
+    phase18_continuous_cli(smi)
     timings.update(phase9_quant_kernels())
     kernels = []
     for name, (route, source, replaces) in KERNEL_ROUTES.items():
@@ -1717,6 +2101,11 @@ def main():
                         **timings[name]})
         if name == "flash_decode":      # phase 12's launches; on serving: 0
             kernels[-1]["serving_path_launches"] = serving_fd
+        # launches on the continuous path: phase 16's tree pass (tree
+        # attention), phase 17's int8-weight engines (quantized matmul)
+        kernels[-1]["continuous_path_launches"] = (
+            continuous["tree"]["launches"][name] if name == "tree_attention"
+            else cont_exact["int8_weights_fp_kv"][name])
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,5 +1,6 @@
 """Chain speculative decoding (Leviathan et al. 2023), batched
-(``repro.core.speculative``, dense caches and a drafter model only).
+(``repro.core.speculative``, with a drafter model: dense per-row caches, or
+the shared paged pool of continuous serving).
 
 Round protocol (committed length per row = L; ``pending`` = the last
 committed token, not yet in either KV cache):
@@ -14,6 +15,13 @@ committed token, not yet in either KV cache):
            full acceptance the bonus token comes from q_{gamma+1}.
   commit : accepted tokens enter the token buffer, and cache entries past
            the accepted prefix are invalidated (pos = -1).
+
+Two optional state keys serve continuous batching (serving.continuous):
+``active`` (B,) bool freezes rows that are False (their lengths, pending
+token and token commits are kept, and their page-table rows are masked to
+the null page so their cache writes land there), and ``page_table`` (B,
+max_pages) makes the caches paged pools (models.attention
+.paged_decode_attention), rewound by ``trim_paged_cache``.
 
 Randomness comes from one ``torch.Generator``. A round may instead take a
 ``noise`` dict holding the exact draws the reference makes from its round
@@ -47,6 +55,67 @@ def trim_attn_cache(cache, limit):
     return cache
 
 
+def trim_paged_cache(cache, page_table, limit):
+    """Paged-pool rewind, in place: invalidate "page_pos" entries with
+    position > the owning row's limit. page_table: (B, max_pages) physical
+    ids (0 = null); limit: (B,). Each page's limit is the min of the limits
+    of the rows whose tables hold it (null page 0 takes the min of all rows,
+    harmless: it is never read). A page shared through the prefix cache
+    holds only positions below every sharer's committed length, so the
+    rewind cannot touch it."""
+    P = cache[0]["page_pos"].shape[0]
+    table = page_table.long()
+    page_limit = torch.full((P,), torch.iinfo(torch.int32).max,
+                            dtype=torch.long, device=table.device)
+    page_limit.scatter_reduce_(
+        0, table.reshape(-1),
+        limit.long().repeat_interleave(table.shape[1]), "amin",
+        include_self=True)
+    for layer in cache:
+        layer["page_pos"].masked_fill_(layer["page_pos"] > page_limit[:, None],
+                                       -1)
+    return cache
+
+
+def masked_page_table(state):
+    """The page table a round's decode calls use: inactive rows masked to
+    the null page (0), so their cache writes land there. None when the
+    state is unpaged."""
+    page_table = state.get("page_table")
+    if page_table is None:
+        return None
+    active = state.get("active")
+    if active is None:
+        return page_table
+    return torch.where(active[:, None], page_table, 0)
+
+
+def rewind_caches(state, d_cache, t_cache, limit):
+    """Keep cache positions <= limit (B,): paged pools through the masked
+    page table, dense caches by their positions."""
+    page_table = masked_page_table(state)
+    if page_table is None:
+        return trim_attn_cache(d_cache, limit), trim_attn_cache(t_cache, limit)
+    return (trim_paged_cache(d_cache, page_table, limit),
+            trim_paged_cache(t_cache, page_table, limit))
+
+
+def gate_rows(state, new_state):
+    """Freeze the inactive rows of a continuous-batching state: their
+    lengths and pending token stay, and the round passes ``active`` and
+    ``page_table`` on."""
+    active = state.get("active")
+    if active is not None:
+        new_state["lengths"] = torch.where(active, new_state["lengths"],
+                                           state["lengths"])
+        new_state["pending"] = torch.where(active, new_state["pending"],
+                                           state["pending"])
+        new_state["active"] = active
+    if state.get("page_table") is not None:
+        new_state["page_table"] = state["page_table"]
+    return new_state
+
+
 @dataclass(frozen=True)
 class SDConfig:
     gamma: int = 3
@@ -69,15 +138,18 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def commit_tokens(tokens, lengths, vals, n_acc):
+def commit_tokens(tokens, lengths, vals, n_acc, active=None):
     """Write vals[:, :n_acc+1] at lengths .. lengths+n_acc of each row, in
-    place. Writes past the buffer are dropped, as the reference's scatter
-    drops them (a finished row keeps running while others catch up)."""
+    place; rows with ``active`` False write nothing. Writes past the buffer
+    are dropped, as the reference's scatter drops them (a finished row
+    keeps running while others catch up)."""
     B, K = vals.shape
     bidx = torch.arange(B, device=tokens.device)[:, None]
     offs = torch.arange(K, device=tokens.device)[None]
     dst = lengths[:, None] + offs
     valid = (offs <= n_acc[:, None]) & (dst < tokens.shape[1])
+    if active is not None:
+        valid = valid & active[:, None]
     idx = torch.where(valid, dst, tokens.shape[1] - 1)
     tokens[bidx, idx] = torch.where(valid, vals, tokens[bidx, idx])
     return tokens
@@ -91,11 +163,13 @@ def sd_draft_phase(draft: Model, sdc: SDConfig, d_params, state, gen,
     g = sdc.gamma
     lengths, pending = state["lengths"], state["pending"]
     d_cache = state["d_cache"]
+    page_table = masked_page_table(state)
     xs, ps = [], []
     tok = pending
     for j in range(g + 1):
         logits, d_cache = draft.decode_step(d_params, tok[:, None],
-                                            (lengths + j)[:, None], d_cache)
+                                            (lengths + j)[:, None], d_cache,
+                                            page_table=page_table)
         p = probs_from_logits(logits[:, 0], sdc.temperature, sdc.top_p)
         ps.append(p)
         if j < g:
@@ -117,7 +191,8 @@ def sd_verify_phase(target: Model, sdc: SDConfig, t_params, state, draft_out):
     feed = torch.cat([pending[:, None], draft_out["x"].T], dim=1)   # (B, g+1)
     positions = lengths[:, None] + torch.arange(g + 1, device=lengths.device)
     logits, t_cache = target.decode_step(t_params, feed, positions,
-                                         state["t_cache"])
+                                         state["t_cache"],
+                                         page_table=masked_page_table(state))
     q_stack = probs_from_logits(logits, sdc.temperature, sdc.top_p)
     return {"q_stack": q_stack.transpose(0, 1), "t_cache": t_cache}
 
@@ -148,19 +223,21 @@ def sd_commit_phase(sdc: SDConfig, state, draft_out, verify_out, gen,
                                   gen, _pick(noise, "residual"))
 
     feed = torch.cat([pending[:, None], x.T], dim=1)                    # (B, g+1)
-    tokens = commit_tokens(tokens, lengths, feed, n_acc)
-    limit = lengths + n_acc               # keep cache positions <= limit
+    tokens = commit_tokens(tokens, lengths, feed, n_acc, state.get("active"))
+    d_cache, t_cache = rewind_caches(state, draft_out["d_cache"],
+                                     verify_out["t_cache"], lengths + n_acc)
     new_state = {"tokens": tokens, "lengths": lengths + n_acc + 1,
-                 "pending": new_pending,
-                 "d_cache": trim_attn_cache(draft_out["d_cache"], limit),
-                 "t_cache": trim_attn_cache(verify_out["t_cache"], limit)}
-    return new_state, n_acc
+                 "pending": new_pending, "d_cache": d_cache,
+                 "t_cache": t_cache}
+    return gate_rows(state, new_state), n_acc
 
 
 def sd_round(draft: Model, target: Model, sdc: SDConfig, d_params, t_params,
              state, gen, noise=None):
     """One speculative block. state: {tokens, lengths, pending, d_cache,
-    t_cache}; the caches are updated in place. Returns (new_state, n_acc)."""
+    t_cache}, optionally {active, page_table} (continuous batching); the
+    caches are updated in place. Returns (new_state, n_acc); n_acc of an
+    inactive row is meaningless."""
     draft_out = sd_draft_phase(draft, sdc, d_params, state, gen, noise)
     verify_out = sd_verify_phase(target, sdc, t_params, state, draft_out)
     return sd_commit_phase(sdc, state, draft_out, verify_out, gen, noise)

@@ -22,6 +22,16 @@ every matmul of a quantized model runs the quantized matmul kernel;
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b-chat \
       --quant-weights int8 --quant-target --quant-kv --tree
 
+Continuous batching (``serving.continuous``): requests arrive over time
+(``--arrival-rate``, Poisson; or a ``--traffic-mix`` scenario) and share a
+paged KV pool; ``--prefix-cache`` maps shared prompt prefixes read-only
+into each request's page table. It composes with ``--tree``,
+``--quant-weights`` and ``--quant-kv``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b-chat \
+      --continuous --tree --prefix-cache --traffic-mix chat --requests 16 \
+      --arrival-rate 4 --max-batch 8 --temperature 0.7
+
 Weights are random, drawn from fixed seeds (target 0, drafter 1); a model to
 be quantized is drawn in float32, as the reference's parameters are, and its
 unquantized leaves are then cast to the compute dtype. ``--reduced`` serves
@@ -37,12 +47,15 @@ import torch
 
 from ..configs import ARCHS, QuantConfig, get_config, reduced
 from ..core.datagen import DatagenConfig, generate_distillation_dataset
-from ..core.metrics import mbsu
+from ..core.metrics import SDStats, latency_percentiles, mbsu
 from ..core.speculative import SDConfig
 from ..kernels import ops
 from ..models.model import Model
 from ..quant import cast_unquantized, params_nbytes, quantize_params
+from ..serving.continuous import ContinuousEngine
 from ..serving.engine import Request, ServingEngine
+from ..serving.scheduler import ServeRequest
+from ..traffic import MIXES, make_mix
 from ..spectree.round import tree_speculative_generate
 from ..spectree.tree import TreeSpec
 
@@ -133,6 +146,103 @@ def serve_static(target, t_params, draft, d_params, prompts, max_new: int,
     return results, tau, tok_s
 
 
+def continuous_requests(n: int, prompt_len: int, max_new: int, vocab: int,
+                        arrival_rate: float = 0.0, mixed_lens: bool = False,
+                        traffic_mix=None, seed: int = 0):
+    """The continuous engine's request stream: a ``traffic`` mix, or random
+    prompts of ``prompt_len`` tokens (``mixed_lens``: uniform in
+    [prompt_len/2, 2*prompt_len]) arriving as a Poisson process at
+    ``arrival_rate`` requests/s (0: all at t = 0)."""
+    if traffic_mix is not None:
+        return make_mix(traffic_mix).build(n, arrival_rate, vocab, seed=seed)
+    rng = np.random.default_rng(seed)
+    lens = (rng.integers(max(prompt_len // 2, 1), 2 * prompt_len + 1, n)
+            if mixed_lens else np.full(n, prompt_len))
+    arrivals = (np.cumsum(rng.exponential(1.0 / arrival_rate, n))
+                if arrival_rate > 0 else np.zeros(n))
+    return [ServeRequest(prompt=rng.integers(3, vocab, lens[i]).astype(np.int32),
+                         max_new_tokens=max_new, request_id=i,
+                         arrival_time_s=float(arrivals[i]))
+            for i in range(n)]
+
+
+def serve_continuous(target, t_params, draft, d_params, requests,
+                     sdc: SDConfig, tree=None, **engine_kw):
+    """Serve ``requests`` through a ``ContinuousEngine`` sized for their
+    longest prompt + max_new. Returns (engine, results)."""
+    max_seq = max(len(r.prompt) + r.max_new_tokens for r in requests)
+    engine = ContinuousEngine(target=target, target_params=t_params,
+                              draft=draft, draft_params=d_params, sd=sdc,
+                              tree=tree, max_seq_len=max_seq, **engine_kw)
+    for r in requests:
+        engine.submit(r)
+    return engine, engine.run()
+
+
+def continuous_summary(engine, results, c: float, depth: int) -> dict:
+    """The reference CLI's end-of-run numbers: throughput over the span
+    from the engine's start to the last finish, tau and MBSU (mean over
+    requests), TTFT/TPOT p50/p99, queue and pool telemetry, prefix-cache
+    counters and the pooled per-depth acceptance."""
+    tel = engine.telemetry
+    stats = [engine.stats[r.request_id] for r in results]
+    total_new = sum(s.new_tokens for s in stats)
+    span = max(s.finish_time_s for s in stats)
+    tau = float(np.mean([s.sd.tau for s in stats]))
+    pooled = SDStats()
+    for s in stats:
+        pooled.merge(s.sd)
+    free = np.asarray(tel.free_pages, np.float64)
+    out = {"requests": len(results), "tokens": total_new, "span_s": span,
+           "tok_s": total_new / span, "tau": tau,
+           "mbsu": mbsu(tau, c, depth),
+           "ttft_ms": latency_percentiles([s.ttft_s for s in stats]),
+           "tpot_ms": latency_percentiles([s.tpot_s for s in stats]),
+           "steps": tel.steps, "rounds": tel.decode_rounds,
+           "prefill_chunks": tel.prefill_chunks,
+           "max_queue": tel.max_queue_depth,
+           "mean_active": tel.mean_active_rows,
+           "pool_util": (1.0 - float(free.mean()) / (engine.num_pages - 1)
+                         if free.size else 0.0),
+           "pooled_tau": pooled.tau,
+           "depth_acceptance": pooled.depth_acceptance(),
+           "accept_hist": dict(sorted(pooled.accept_hist.items()))}
+    if engine.prefix is not None:
+        ptel = engine.prefix.tel
+        out["prefix"] = {"hit_rate": ptel.hit_rate,
+                         "tokens_saved_rate": ptel.tokens_saved_rate,
+                         "hits": ptel.hits, "lookups": ptel.lookups,
+                         "hit_tokens": ptel.hit_tokens,
+                         "prompt_tokens": ptel.prompt_tokens,
+                         "cow_copies": ptel.cow_copies,
+                         "evictions": ptel.evictions,
+                         "shared_page_frac": tel.mean_shared_frac}
+    return out
+
+
+def print_continuous(engine, summary: dict):
+    s = summary
+    print(f"continuous: {s['requests']} requests, {s['tokens']} tokens "
+          f"in {s['span_s']:.2f}s -> {s['tok_s']:.1f} tok/s")
+    print(f"  tau={s['tau']:.3f} MBSU={s['mbsu']:.3f} "
+          f"TTFT p50={s['ttft_ms']['p50_ms']:.0f}ms "
+          f"p99={s['ttft_ms']['p99_ms']:.0f}ms "
+          f"TPOT p50={s['tpot_ms']['p50_ms']:.0f}ms "
+          f"p99={s['tpot_ms']['p99_ms']:.0f}ms")
+    print(f"  steps={s['steps']} rounds={s['rounds']} "
+          f"prefill_chunks={s['prefill_chunks']} max_queue={s['max_queue']} "
+          f"mean_active={s['mean_active']:.2f} pool_util={s['pool_util']:.2f}")
+    if engine.prefix is not None:
+        print(f"  prefix cache: {engine.prefix.tel.summary()} "
+              f"shared_page_frac={s['prefix']['shared_page_frac']:.2f}")
+    depth_acc = ", ".join(f"d{d}={r:.2f}"
+                          for d, r in s["depth_acceptance"].items())
+    print(f"  pooled tau={s['pooled_tau']:.3f} "
+          f"per-depth acceptance: {depth_acc or 'none'}")
+    hist = " ".join(f"{h}:{n}" for h, n in s["accept_hist"].items())
+    print(f"  tokens-per-round histogram: {hist or 'none'}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
@@ -161,7 +271,33 @@ def main(argv=None):
                     help="int4 scale group along the input dim")
     ap.add_argument("--calib-seqs", type=int, default=4,
                     help="datagen seed sequences for AWQ calibration")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching engine (paged KV + scheduler)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="Poisson arrivals, requests/sec (0 = all at t=0)")
+    ap.add_argument("--mixed-lens", action="store_true",
+                    help="sample prompt lengths in [prompt_len/2, 2*prompt_len]")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--policy", choices=("fcfs", "priority"), default="fcfs")
+    ap.add_argument("--aging-s", type=float, default=None,
+                    help="priority aging: a queued request gains one priority "
+                         "class per this many seconds waited")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over the paged KV pool: shared "
+                         "prompt prefixes prefill once")
+    ap.add_argument("--traffic-mix", choices=sorted(MIXES), default=None,
+                    help="replay a traffic scenario mix instead of random "
+                         "prompts (continuous only)")
     args = ap.parse_args(argv)
+    for flag, val in (("--traffic-mix", args.traffic_mix),
+                      ("--prefix-cache", args.prefix_cache),
+                      ("--mixed-lens", args.mixed_lens)):
+        if val and not args.continuous:
+            ap.error(f"{flag} requires --continuous")
+    if args.continuous and args.no_draft:
+        ap.error("--continuous is speculative-only")
     if args.tree and args.no_draft:
         ap.error("--tree is speculative-only")
     if args.quant_target and args.quant_weights is None:
@@ -186,11 +322,32 @@ def main(argv=None):
     sdc = SDConfig(gamma=args.gamma, temperature=args.temperature,
                    kv_quant=args.quant_kv)
     prompts = make_prompts(args.requests, args.prompt_len, target.cfg.vocab_size)
-
-    if args.tree:
-        spec = TreeSpec((args.tree_branch,) * args.tree_depth)
+    spec = (TreeSpec((args.tree_branch,) * args.tree_depth) if args.tree
+            else None)
+    if spec is not None:
         print(f"tree: branching={spec.branching} nodes={spec.num_nodes} "
               f"(chain-equivalent gamma={spec.num_draft_nodes})")
+
+    if args.continuous:
+        reqs = continuous_requests(args.requests, args.prompt_len,
+                                   args.max_new, target.cfg.vocab_size,
+                                   args.arrival_rate, args.mixed_lens,
+                                   args.traffic_mix)
+        ops.reset_launches()
+        engine, results = serve_continuous(
+            target, t_params, draft, d_params, reqs, sdc, spec,
+            max_batch=args.max_batch, page_size=args.page_size,
+            prefill_chunk=args.prefill_chunk, policy=args.policy,
+            aging_s=args.aging_s, kv_quant=args.quant_kv,
+            prefix_cache=args.prefix_cache)
+        launches = dict(ops.LAUNCHES)
+        summary = continuous_summary(engine, results, c,
+                                     spec.depth if spec else args.gamma)
+        print_continuous(engine, summary)
+        print(f"kernel launches: {json.dumps(launches)}")
+        return
+
+    if spec is not None:
         ops.reset_launches()
         toks, stats = serve_tree(target, t_params, draft, d_params, prompts,
                                  args.max_new, sdc, spec)

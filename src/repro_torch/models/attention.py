@@ -1,6 +1,7 @@
 """GQA attention: training and prefill (query-chunked causal) and decode
 against a KV cache, with the slots and ancestor masks of tree speculation
-(``repro.models.attention``, dense unpaged path).
+(``repro.models.attention``): the dense per-row cache and the shared paged
+pool of continuous serving (``paged_decode_attention``).
 
 Dispatch is the reference's: a tree-masked decode call goes to the tree
 attention kernel (``kernels.ops.tree_verify_attention``); training, prefill and
@@ -161,6 +162,80 @@ def decode_attention(params, x, cache, pos, cfg, slots=None, attn_mask=None):
         m = (cache_pos[:, None, :] >= 0) & (cache_pos[:, None, :] <= pos[:, :, None])
     else:
         m = (cache_pos[:, None, :] >= 0) & attn_mask
+    out = _attend(q, kc, vc, m, cfg, tree=attn_mask is not None)
+    out = matmul_param(out.reshape(B, T, cfg.num_heads * cfg.head_dim_),
+                       params["wo"])
+    return out, cache
+
+
+def _zero_null_page(pool):
+    """Page 0 is the null page: writes routed there (rows masked out of a
+    round, unallocated table entries) are dropped by zeroing it again, so
+    the gathered views read zeros, never non-finite values, in its slots.
+    Those slots are masked, and 0 * NaN would still poison p @ V."""
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in pool:
+            pool[name][0].zero_()
+
+
+def paged_decode_attention(params, x, cache, page_table, pos, cfg,
+                           slots=None, attn_mask=None):
+    """Decode T new tokens against a shared paged KV pool.
+
+    cache: {"k", "v": (P, page, Hkv, hd), "page_pos": (P, page)} (int8
+      pools add "k_scale", "v_scale": (P, page, Hkv)): one physical pool
+      shared by every row; "page_pos" holds the absolute position written
+      into each pool slot (-1 = empty).
+    page_table: (B, max_pages) int mapping a row's logical page (position
+      // page) to a physical page. Physical page 0 is the null page:
+      unallocated entries point there, masked-out rows write there, and
+      reads through a 0 entry are masked; it is zeroed after every write
+      (``_zero_null_page``), where the reference keeps what was written.
+    pos: (B, T) absolute RoPE positions of x.
+    slots: optional (B, T) storage positions overriding ``pos`` for the pool
+      scatter (tree siblings share a position, never a slot).
+    attn_mask: optional (B, T, max_pages * page) mask over the gathered view
+      replacing positional causality; such calls go through the tree
+      attention kernel, at a width that is any multiple of the page size.
+
+    Shared (prefix-cache) pages appear in several rows' tables; they are
+    read-only by the allocator's contract, so every write here lands on a
+    page private to its row (serving.kv_pool). Returns (out, cache) with
+    the new tokens written into the pool in place.
+    """
+    B, T, _ = x.shape
+    kpool, vpool, page_pos = cache["k"], cache["v"], cache["page_pos"]
+    page = page_pos.shape[1]
+    table = page_table.long()
+    max_pages = table.shape[1]
+    W = max_pages * page
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    q, k, v = _project_qkv(params, x, cfg, pos)
+    write_pos = (pos if slots is None else slots).long()
+    phys = table.gather(1, (write_pos // page).clamp(0, max_pages - 1))
+    off = write_pos % page
+    if kv_quantized(cache):
+        kq, ks = quantize_kv_entry(k)
+        vq, vs = quantize_kv_entry(v)
+        kpool[phys, off] = kq
+        vpool[phys, off] = vq
+        cache["k_scale"][phys, off] = ks
+        cache["v_scale"][phys, off] = vs
+        _zero_null_page(cache)
+        kc = dequantize_kv_entry(kpool[table], cache["k_scale"][table], q.dtype)
+        vc = dequantize_kv_entry(vpool[table], cache["v_scale"][table], q.dtype)
+    else:
+        kpool[phys, off] = k.to(kpool.dtype)
+        vpool[phys, off] = v.to(vpool.dtype)
+        _zero_null_page(cache)
+        kc, vc = kpool[table].to(q.dtype), vpool[table].to(q.dtype)
+    kc, vc = kc.reshape(B, W, Hkv, hd), vc.reshape(B, W, Hkv, hd)
+    page_pos[phys, off] = write_pos.to(torch.int32)
+    cp = torch.where((table == 0)[:, :, None], -1, page_pos[table]).reshape(B, W)
+    if attn_mask is None:
+        m = (cp[:, None, :] >= 0) & (cp[:, None, :] <= pos[:, :, None])
+    else:
+        m = (cp[:, None, :] >= 0) & attn_mask
     out = _attend(q, kc, vc, m, cfg, tree=attn_mask is not None)
     out = matmul_param(out.reshape(B, T, cfg.num_heads * cfg.head_dim_),
                        params["wo"])

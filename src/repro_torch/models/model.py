@@ -64,6 +64,13 @@ class Model:
     def init_cache(self, batch: int, max_len: int, kv_quant: bool = False):
         return tfm.init_cache(self.cfg, batch, max_len, self.device, kv_quant)
 
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         kv_quant: bool = False):
+        """Shared paged KV pool (serving.kv_pool); ``kv_quant`` = int8
+        pages with per-slot scales."""
+        return tfm.init_paged_cache(self.cfg, num_pages, page_size,
+                                    self.device, kv_quant)
+
     def hidden(self, params, tokens):
         """tokens (B, S) -> final hidden states (B, S, D) of a training
         forward (no caches). The reference also returns an MoE aux loss,
@@ -90,12 +97,16 @@ class Model:
         return tfm.logits_from_hidden(params, h[:, -1:], self.cfg), cache
 
     def decode_step(self, params, tokens, positions, cache, slots=None,
-                    attn_mask=None):
+                    attn_mask=None, page_table=None):
         """tokens (B, T) new ids, positions (B, T) absolute -> (logits
         (B, T, V) fp32, cache). ``slots``/``attn_mask`` serve tree
         speculation: storage slots for nodes that share a RoPE position, and
-        an ancestor mask replacing positional causality."""
+        an ancestor mask replacing positional causality. With
+        ``page_table`` (B, max_pages) the attention layers read and write
+        the shared paged pool (``init_paged_cache``) instead of per-row
+        caches."""
         h, cache = tfm.backbone(params, tokens, self.cfg, mode="decode",
                                 positions=positions, cache=cache,
-                                slots=slots, attn_mask=attn_mask)
+                                slots=slots, attn_mask=attn_mask,
+                                page_table=page_table)
         return tfm.logits_from_hidden(params, h, self.cfg), cache

@@ -79,6 +79,34 @@ def init_cache(cfg, batch, max_len, device, kv_quant=False):
     return caches
 
 
+def init_paged_cache(cfg, num_pages, page_size, device, kv_quant=False):
+    """One paged KV pool dict per layer (``repro.models.transformer
+    .init_paged_cache``): {"k", "v": (P, page, Hkv, hd), "page_pos": (P,
+    page)}, no batch axis; rows share the pool through a page table
+    (serving.kv_pool), and physical page 0 is the null page. ``kv_quant``
+    stores int8 k/v plus fp32 per-(page slot, head) "k_scale"/"v_scale".
+
+    The pool is zeroed, not left uninitialised: every row's gathered view
+    holds null-page and never-written slots at probability 0, and a
+    non-finite value there would turn 0 * V into NaN."""
+    _check_pattern(cfg)
+    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim_)
+    kv_dtype = torch.int8 if kv_quant else cfg.compute_dtype
+    pools = []
+    for _ in range(cfg.num_layers):
+        c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "page_pos": torch.full((num_pages, page_size), -1,
+                                    dtype=torch.int32, device=device)}
+        if kv_quant:
+            c["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)
+            c["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)
+        pools.append(c)
+    return pools
+
+
 def _train_layer(lp, x, positions, cfg):
     x = x + attn_mod.causal_attention(lp["attn"], rms_norm(x, lp["norm1"],
                                                            cfg.norm_eps),
@@ -87,10 +115,11 @@ def _train_layer(lp, x, positions, cfg):
 
 
 def backbone(params, tokens, cfg, mode, positions=None, cache=None,
-             cache_len=0, slots=None, attn_mask=None):
+             cache_len=0, slots=None, attn_mask=None, page_table=None):
     """tokens: (B, S) int. ``mode`` is "train" (no caches), "prefill"
     (builds caches of ``cache_len`` slots) or "decode" (writes into
-    ``cache``). Returns (hidden (B, S, D) after the final norm, caches;
+    ``cache``; with ``page_table`` (B, max_pages) the cache is the shared
+    paged pool of ``init_paged_cache``). Returns (hidden (B, S, D) after the final norm, caches;
     None in training).
 
     In training with ``cfg.remat``, each layer runs under
@@ -117,6 +146,10 @@ def backbone(params, tokens, cfg, mode, positions=None, cache=None,
         if mode == "prefill":
             y, c = attn_mod.prefill_attention(lp["attn"], h, positions, cfg,
                                               cache_len)
+        elif mode == "decode" and page_table is not None:
+            y, c = attn_mod.paged_decode_attention(
+                lp["attn"], h, cache[i], page_table, positions, cfg,
+                slots=slots, attn_mask=attn_mask)
         elif mode == "decode":
             y, c = attn_mod.decode_attention(lp["attn"], h, cache[i],
                                              positions, cfg, slots=slots,

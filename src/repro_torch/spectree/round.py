@@ -1,5 +1,7 @@
 """Tree-structured speculative decoding round (``repro.spectree.round``,
-dense caches and a drafter model only).
+with a drafter model: dense per-row caches, or the shared paged pool of
+continuous serving, with the ``active``/``page_table`` state keys of
+``core.speculative.sd_round``).
 
   draft  : level-by-level expansion. At each level the drafter scores all
            of the level's nodes in ONE decode call (siblings share RoPE
@@ -16,7 +18,9 @@ dense caches and a drafter model only).
            drawn from q_leaf (the bonus token).
   commit : the accepted root path's K/V is copied from its tree slots to
            the canonical slots L..L+n_acc; every other tree slot is
-           invalidated (pos = -1).
+           invalidated (pos = -1). In a paged pool a storage position maps
+           to a page through the row's page table; masked-out rows write
+           to the null page.
 
 Every tree-masked decode call goes through the tree attention kernel, so
 one round launches it (depth+1) * drafter layers + target layers times.
@@ -31,14 +35,18 @@ import torch
 
 from ..core.sampling import probs_from_logits, sample_from_probs
 from ..core.speculative import (SDConfig, _pick, _prefill_state,
-                                attention_only, commit_tokens, run_rounds)
+                                attention_only, commit_tokens, gate_rows,
+                                masked_page_table, run_rounds)
 from ..models.model import Model
 from .tree import TreeSpec, tree_attn_mask
 
 
-def _cache_view_width(cache) -> int:
-    """Slot count of the attention view the masks must align with (every
-    layer of a dense port cache has the same width)."""
+def _cache_view_width(cache, page_table=None) -> int:
+    """Slot count of the attention view the masks must align with: a dense
+    cache's width (the same in every layer), or a paged row's gathered view
+    of max_pages * page slots."""
+    if page_table is not None:
+        return page_table.shape[1] * cache[0]["page_pos"].shape[1]
     return cache[0]["pos"].shape[1]
 
 
@@ -70,6 +78,51 @@ def commit_tree_path(cache, lengths, path_nodes, n_acc, num_nodes):
     return cache
 
 
+def commit_tree_path_paged(cache, page_table, lengths, path_nodes, n_acc,
+                           num_nodes):
+    """Paged-pool root-path commit and tree-region invalidation, in place.
+
+    The same commit as ``commit_tree_path`` with storage position s of a row
+    at (page_table[row, s // page], s % page). Every source is gathered
+    before any destination is written (the reference's scatter is
+    functional). Rows masked to the null page route every access to page 0,
+    which is never read. Only storage positions >= the committed length are
+    addressed, so prefix-shared pages are never touched."""
+    page = cache[0]["page_pos"].shape[1]
+    table = page_table.long()
+    max_pages = table.shape[1]
+    dev = lengths.device
+    offs = torch.arange(path_nodes.shape[1], device=dev)[None]
+
+    def phys_off(storage):                         # (B, X) absolute positions
+        pidx = (storage // page).clamp(0, max_pages - 1)
+        return table.gather(1, pidx), storage % page
+
+    src_p, src_o = phys_off(lengths[:, None] + path_nodes)
+    dst_p, dst_o = phys_off(lengths[:, None] + offs)
+    tree_p, tree_o = phys_off(lengths[:, None]
+                              + torch.arange(num_nodes, device=dev)[None])
+    canon = torch.where(offs <= n_acc[:, None], lengths[:, None] + offs,
+                        -1).to(torch.int32)
+    for layer in cache:
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if name in layer:
+                layer[name][dst_p, dst_o] = layer[name][src_p, src_o]
+        layer["page_pos"][tree_p, tree_o] = -1
+        layer["page_pos"][dst_p, dst_o] = canon
+    return cache
+
+
+def commit_path(state, cache, path_nodes, n_acc, num_nodes):
+    """Root-path commit of one model's cache, dense or paged."""
+    page_table = masked_page_table(state)
+    if page_table is None:
+        return commit_tree_path(cache, state["lengths"], path_nodes, n_acc,
+                                num_nodes)
+    return commit_tree_path_paged(cache, page_table, state["lengths"],
+                                  path_nodes, n_acc, num_nodes)
+
+
 def tree_draft_phase(draft: Model, sdc: SDConfig, spec: TreeSpec, d_params,
                      state, gen, noise=None):
     """Level-by-level tree expansion. Returns {"node_tok": (N, B),
@@ -82,7 +135,8 @@ def tree_draft_phase(draft: Model, sdc: SDConfig, spec: TreeSpec, d_params,
     B = pending.shape[0]
     dev = pending.device
     starts = spec.level_starts
-    width = _cache_view_width(d_cache)
+    page_table = masked_page_table(state)
+    width = _cache_view_width(d_cache, page_table)
     level_toks = [pending[:, None]]            # level d -> (B, n_d) tokens
     ps = []                                    # per level (n_d, B, V)
     for d in range(spec.depth + 1):
@@ -93,7 +147,8 @@ def tree_draft_phase(draft: Model, sdc: SDConfig, spec: TreeSpec, d_params,
         amask = tree_attn_mask(spec, s, e, lengths, width)
         logits, d_cache = draft.decode_step(d_params, level_toks[d], rope,
                                             d_cache, slots=slot_pos,
-                                            attn_mask=amask)
+                                            attn_mask=amask,
+                                            page_table=page_table)
         p = probs_from_logits(logits, sdc.temperature, sdc.top_p)  # (B,nl,V)
         ps.append(p.transpose(0, 1))
         if d < spec.depth:
@@ -117,12 +172,15 @@ def tree_verify_phase(target: Model, sdc: SDConfig, spec: TreeSpec, t_params,
     dev = lengths.device
     t_cache = state["t_cache"]
     N = spec.num_nodes
+    page_table = masked_page_table(state)
     rope = lengths[:, None] + torch.as_tensor(spec.depths(), device=dev)[None]
     slot_pos = lengths[:, None] + torch.arange(N, device=dev)[None]
-    amask = tree_attn_mask(spec, 0, N, lengths, _cache_view_width(t_cache))
+    amask = tree_attn_mask(spec, 0, N, lengths,
+                           _cache_view_width(t_cache, page_table))
     logits, t_cache = target.decode_step(t_params, draft_out["node_tok"].T,
                                          rope, t_cache, slots=slot_pos,
-                                         attn_mask=amask)
+                                         attn_mask=amask,
+                                         page_table=page_table)
     q_node = probs_from_logits(logits, sdc.temperature, sdc.top_p)
     return {"q_node": q_node.transpose(0, 1), "t_cache": t_cache}
 
@@ -176,15 +234,14 @@ def tree_commit_phase(sdc: SDConfig, spec: TreeSpec, state, draft_out,
     path_nodes = torch.stack(path, dim=1)                             # (B, D+1)
 
     tokens = commit_tokens(tokens, lengths, node_tok[path_nodes, bidx[:, None]],
-                           n_acc)
+                           n_acc, state.get("active"))
     N = spec.num_nodes
     new_state = {
         "tokens": tokens, "lengths": lengths + n_acc + 1, "pending": new_pending,
-        "d_cache": commit_tree_path(draft_out["d_cache"], lengths, path_nodes,
-                                    n_acc, N),
-        "t_cache": commit_tree_path(verify_out["t_cache"], lengths, path_nodes,
-                                    n_acc, N)}
-    return new_state, n_acc
+        "d_cache": commit_path(state, draft_out["d_cache"], path_nodes, n_acc, N),
+        "t_cache": commit_path(state, verify_out["t_cache"], path_nodes, n_acc,
+                               N)}
+    return gate_rows(state, new_state), n_acc
 
 
 def tree_round(draft: Model, target: Model, sdc: SDConfig, spec: TreeSpec,

@@ -45,6 +45,19 @@ def gumbel(key, shape):
     return jax.random.gumbel(key, shape, jnp.float32)
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run the port's CPU ops on one thread for a module, then restore the
+    count. Their tensors are tiny, and beside other test processes each
+    intra-op parallel region waits on threads that share the cores, which
+    slows a serving loop of thousands of small ops by an order of
+    magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=sorted(PAIRS))
 def models(request):
     """Reference and port (target, drafter) with the same float32 weights,
