@@ -98,8 +98,30 @@ Phases, each printing one JSON line:
  18. the serving CLI's --continuous branch at full width in subprocesses
      (16 chat-mix requests): tree with the prefix cache, int8 weights on
      both models and int8 KV, then chain in bf16; each must serve all 16
-     requests, its printed kernel launches checked.
-Phases 10, 11, 13-15 and 18 run before phase 9. Then the ``kernels`` line, the
+     requests, its printed kernel launches checked;
+ 19. self-speculative serving with draft heads on phase 3's target (after
+     phase 16, no drafter model): an EAGLE head (one block with 32 heads,
+     d_ff 16384, 302.0M parameters) and Medusa heads (K 4, 67.1M) from
+     seeds, each by tree (2, 2) and chain gamma 3 over 4 x (128 + 64) at
+     temperature 0.7, then phase 16's chat-mix stream through the
+     continuous engine by tree with EAGLE heads and the prefix cache;
+     tree_attention must be launched exactly 32 times per tree round (the
+     verify pass only) and never in a chain round, every request must
+     finish with its max_new tokens, and the engine must hold no drafter
+     pool; tau, MBSU, tok/s, TTFT/TPOT, peak memory, the eager draft time
+     per level, and host and device ms per round (torch.profiler);
+ 20. greedy exactness with heads at full width with 2 float32 target
+     layers: EAGLE and Medusa, chain and tree, static and continuous (4
+     requests through 2 slots) must give the target's greedy tokens;
+ 21. head distillation at full width: EAGLE and Medusa heads (float32
+     master weights) take 3 TVD++ steps each against the frozen bf16 target
+     on 4 x 1024 tokens of its own datagen responses, with finite losses
+     and moving parameters; a head checkpoint saved, loaded and served by
+     tree; then the training CLI (--reduced --draft-head eagle --save), the
+     serving CLI from that checkpoint by tree, and the --continuous --tree
+     --draft-head eagle serving CLI at full width on the chat mix, in
+     subprocesses, their printed launches checked.
+Phases 10, 11, 13-15, 18 and 21 run before phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
 non-zero exit code and no result line.
@@ -1793,10 +1815,26 @@ def check_served(results, reqs, vocab):
         assert ((r.tokens >= 0) & (r.tokens < vocab)).all(), r.request_id
 
 
+def tree_launches_per_round(target, draft, spec):
+    """tree_attention launches of one round: the target's verify pass and,
+    with a drafter model, its depth + 1 levels (draft heads attend in plain
+    torch); none in a chain round."""
+    from repro_torch.draftheads import is_head_drafter
+    if spec is None:
+        return 0
+    n = target.cfg.num_layers
+    if not is_head_drafter(draft):
+        n += draft.cfg.num_layers * (spec.depth + 1)
+    return n
+
+
 def continuous_pass(models, sdc, spec, prefix, kv_quant, rate=CONT_RATE):
     """One measured pass over the 16-request chat stream arriving at
     ``rate`` requests/s (0: all at t = 0, the engine's own throughput),
-    launch counts set to 0 just before it and read just after."""
+    launch counts set to 0 just before it and read just after. ``models``'
+    drafter is a drafter model or a head drafter (whose engine must then
+    hold no drafter pool)."""
+    from repro_torch.draftheads import is_head_drafter
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     target, t_params, draft, d_params, c = models
@@ -1818,8 +1856,9 @@ def continuous_pass(models, sdc, spec, prefix, kv_quant, rate=CONT_RATE):
     depth = spec.depth if spec is not None else sdc.gamma
     summary = serve.continuous_summary(engine, results, c, depth)
     R = engine.telemetry.decode_rounds
-    per_round = (target.cfg.num_layers + draft.cfg.num_layers * (spec.depth + 1)
-                 if spec is not None else 0)
+    per_round = tree_launches_per_round(target, draft, spec)
+    if is_head_drafter(draft):
+        assert "d_cache" not in engine._state and len(engine._caches()) == 1
     want = {k: 0 for k in launches}
     want["tree_attention"] = R * per_round
     assert R > 0 and launches == want, (launches, want)
@@ -1843,15 +1882,16 @@ def profile_continuous(models, sdc, spec, rounds=4):
     and ``rounds`` more under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
+    from repro_torch.launch import serve
     from repro_torch.serving import ContinuousEngine
     target, t_params, draft, d_params, _ = models
     reqs = chat_requests(8, 0.0, target.cfg.vocab_size, seed=2)
     for r in reqs:
         r.max_new_tokens = 96
-    engine = ContinuousEngine(target=target, target_params=t_params, draft=draft,
-                              draft_params=d_params, sd=sdc, tree=spec,
+    engine = ContinuousEngine(target=target, target_params=t_params, sd=sdc,
+                              tree=spec,
                               max_seq_len=max(len(r.prompt) + 96 for r in reqs),
-                              **CONT_ENGINE)
+                              **serve.drafter_kw(draft, d_params), **CONT_ENGINE)
     for r in reqs:
         engine.submit(r)
     while any(s.state != "decode" for s in engine._slots):
@@ -2042,6 +2082,356 @@ def phase18_continuous_cli(smi):
     emit({"phase": 18, "runs": runs, "nvidia_smi": smi})
 
 
+# ------------------------------------------------ draft heads (19-21)
+
+HEAD_KINDS = ("eagle", "medusa")
+HEAD_PARAMS_M = {"eagle": 302.0, "medusa": 67.1}   # at Llama-2-7B's widths
+
+
+def head_drafters(target, dtype):
+    """EAGLE (32 heads, d_ff 16384) and Medusa (K 4) heads for ``target``,
+    drawn from seeds 1 and 2 with their matmul weights in ``dtype``."""
+    from repro_torch.draftheads import HeadConfig, HeadDrafter
+    out = {}
+    for seed, kind in enumerate(HEAD_KINDS, start=1):
+        drafter = HeadDrafter(HeadConfig.for_target(kind, target.cfg))
+        assert round(drafter.hc.param_count() / 1e6, 1) == HEAD_PARAMS_M[kind]
+        out[kind] = (drafter, drafter.init(seed, target.device, dtype))
+    return out
+
+
+def head_draft_ms(target, t_params, drafter, hp, sdc, spec, B=4):
+    """One head draft as a round runs it, eager (host launches included),
+    timed with CUDA events at B 4 from a random feature: a chain of gamma
+    tokens and a tree expansion, and their time per step and per level."""
+    from repro_torch.draftheads import head_draft_chain, head_draft_tree
+    dev, cfg = target.device, target.cfg
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h = torch.randn((B, cfg.d_model), generator=gen, device=dev,
+                    dtype=cfg.compute_dtype)
+    pending = torch.randint(3, cfg.vocab_size, (B,), generator=gen, device=dev)
+    chain = cuda_ms(lambda: head_draft_chain(drafter, hp, t_params, cfg, sdc, h,
+                                             pending, gen), iters=20)
+    tree = cuda_ms(lambda: head_draft_tree(drafter, hp, t_params, cfg, sdc,
+                                           spec, h, pending, gen), iters=20)
+    return {"chain_ms": chain, "chain_ms_per_token": chain / sdc.gamma,
+            "tree_ms": tree, "tree_ms_per_level": tree / (spec.depth + 1)}
+
+
+def phase19_head_serving(models, smi):
+    """Static tree and chain serving with EAGLE and Medusa heads on phase
+    3's target, then the continuous engine by tree with EAGLE heads on
+    phase 16's stream. Returns the tree passes' tree_attention launches."""
+    from repro_torch.core.metrics import mbsu
+    from repro_torch.core.speculative import SDConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.spectree.tree import TreeSpec
+    target, t_params = models[:2]
+    V = target.cfg.vocab_size
+    spec, sdc = TreeSpec((2, 2)), SDConfig(gamma=3, temperature=0.7)
+    prompts = serve.make_prompts(4, 128, V)
+    n_target = serve.count_params(t_params)
+    t0 = time.perf_counter()
+    heads = head_drafters(target, target.cfg.compute_dtype)
+    out, tree_launches = {}, {}
+    for kind, (drafter, hp) in heads.items():
+        c = drafter.hc.param_count() / n_target
+        per_round = tree_launches_per_round(target, drafter, spec)
+        assert per_round == target.cfg.num_layers, per_round    # 32 at 7B
+        res = out[kind] = {"param_count": drafter.hc.param_count(), "c": c}
+        # tree (2, 2); warm-up on 8 new tokens, not counted
+        serve.serve_tree(target, t_params, drafter, hp, prompts, 8, sdc, spec,
+                         seed=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        toks, stats = serve.serve_tree(target, t_params, drafter, hp, prompts,
+                                       64, sdc, spec)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        want = {k: 0 for k in launches}
+        want["tree_attention"] = stats.rounds * per_round
+        assert stats.rounds > 0 and launches == want, (kind, launches, want)
+        new = toks[:, 128:128 + 64]
+        assert bool(((new >= 0) & (new < V)).all()), "token out of vocab"
+        assert stats.tau >= 1.0 and math.isfinite(stats.tau), stats.tau
+        tree_launches[f"static_tree_{kind}"] = launches["tree_attention"]
+        res["tree"] = {
+            "rounds": stats.rounds, "launches": launches,
+            "launches_per_round": per_round, "tau": stats.tau,
+            "mbsu": mbsu(stats.tau, c, spec.depth),
+            "tok_s": stats.tokens_per_s(), "wall_s": stats.wall_time_s,
+            "depth_acceptance": stats.depth_acceptance(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "where_the_time_goes": profile_tree(
+                (target, t_params, drafter, hp, c), prompts, sdc, spec,
+                stats.wall_time_s * 1e3 / stats.rounds)}
+        # chain gamma 3 through the static engine
+        serve.serve_static(target, t_params, drafter, hp, prompts, 8, sdc, seed=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        results, tau, tok_s = serve.serve_static(target, t_params, drafter, hp,
+                                                 prompts, 64, sdc)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        assert all(n == 0 for n in launches.values()), (kind, launches)
+        check_served(results, [serve.Request(prompt=p, max_new_tokens=64,
+                                             request_id=i)
+                               for i, p in enumerate(prompts)], V)
+        assert tau >= 1.0 and math.isfinite(tau), tau
+        res["chain"] = {"gamma": 3, "tau": tau, "mbsu": mbsu(tau, c, 3),
+                        "tok_s": tok_s, "launches": launches,
+                        "rounds": results[0].rounds,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "note": "tok/s over the batch's wall time, prefill "
+                                "included"}
+        res["draft_eager"] = head_draft_ms(target, t_params, drafter, hp, sdc,
+                                           spec)
+    eagle, ehp = heads["eagle"]
+    hmodels = (target, t_params, eagle, ehp, out["eagle"]["c"])
+    cont = continuous_pass(hmodels, sdc, spec, prefix=True, kv_quant=False)
+    tree_launches["continuous_tree_eagle"] = cont["launches"]["tree_attention"]
+    cont["where_the_time_goes"] = profile_continuous(hmodels, sdc, spec)
+    out["continuous_eagle_tree"] = cont
+    emit({"phase": 19, "arch": target.cfg.name, "dtype": target.cfg.dtype,
+          "drafter": "draft heads (no drafter model)", "requests": 4,
+          "prompt_len": 128, "max_new": 64, "tree": spec.branching,
+          "temperature": 0.7, "mix": CONT_MIX, "engine": CONT_ENGINE,
+          "results": out, "tree_attention_launches": tree_launches,
+          "wall_s": time.perf_counter() - t0, "nvidia_smi": smi})
+    return sum(tree_launches.values())
+
+
+def phase20_head_greedy_exactness():
+    """Temperature 0 with 2 float32 target layers: EAGLE and Medusa heads,
+    chain and tree, static and through the continuous engine (4 requests of
+    different lengths through 2 slots), must give the target's greedy
+    tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.speculative import (SDConfig, autoregressive_generate,
+                                              speculative_generate)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.serving import ContinuousEngine, ServeRequest
+    from repro_torch.spectree.round import tree_speculative_generate
+    from repro_torch.spectree.tree import TreeSpec
+    cfg = get_config("llama2-7b-chat").replace(num_layers=2, dtype="float32")
+    target = Model(cfg, "cuda")
+    t_params = target.init(0)
+    dev, V = target.device, cfg.vocab_size
+    P, M = 64, 32
+    prompt = torch.as_tensor(serve.make_prompts(2, P, V, seed=5), device=dev)
+    sdc, spec = SDConfig(gamma=3, temperature=0.0), TreeSpec((2, 2))
+    ar, _ = autoregressive_generate(target, t_params, prompt, M, temperature=0.0)
+    rng = np.random.default_rng(20)
+    lens, news = (40, 64, 50, 57), (16, 12, 20, 14)
+    prompts = [rng.integers(3, V, n).astype(np.int64) for n in lens]
+    ar_req = [autoregressive_generate(target, t_params,
+                                      torch.as_tensor(p[None], device=dev), m,
+                                      temperature=0.0)[0][0, len(p):].cpu().numpy()
+              for p, m in zip(prompts, news)]
+    out = {}
+    for kind, (drafter, hp) in head_drafters(target, torch.float32).items():
+        chain, cstats = speculative_generate(drafter, target, hp, t_params,
+                                             prompt, M, sdc)
+        ops.reset_launches()
+        tree, tstats = tree_speculative_generate(drafter, target, hp, t_params,
+                                                 prompt, M, sdc, spec)
+        launches = ops.LAUNCHES["tree_attention"]
+        res = out[kind] = {
+            "static_chain": torch.equal(chain[:, :P + M], ar),
+            "static_tree": torch.equal(tree[:, :P + M], ar),
+            "chain_tau": cstats.tau, "tree_tau": tstats.tau,
+            "tree_launches": launches, "tree_rounds": tstats.rounds}
+        assert launches == tstats.rounds * cfg.num_layers, res
+        for name, tree_spec in (("continuous_chain", None),
+                                ("continuous_tree", spec)):
+            engine = ContinuousEngine(
+                target=target, target_params=t_params, draft_heads=drafter,
+                draft_head_params=hp, sd=sdc, tree=tree_spec, max_batch=2,
+                page_size=16, prefill_chunk=32,
+                max_seq_len=max(n + m for n, m in zip(lens, news)))
+            assert "d_cache" not in engine._state
+            got = engine.serve([ServeRequest(prompt=p, max_new_tokens=m,
+                                             request_id=i)
+                                for i, (p, m) in enumerate(zip(prompts, news))])
+            assert engine.telemetry.max_queue_depth >= 1   # staggered admission
+            res[name] = all(np.array_equal(r.tokens, ar_req[r.request_id])
+                            for r in got) and len(got) == len(prompts)
+        emit({"phase": 20, "heads": kind, "equals_greedy": res})
+        assert all(v for k, v in res.items() if k.startswith(("static", "cont"))), \
+            (kind, res)
+    emit({"phase": 20, "arch": cfg.name, "target_layers": 2, "dtype": "float32",
+          "temperature": 0.0, "results": out})
+
+
+HEAD_TRAIN_B, HEAD_TRAIN_S, HEAD_TRAIN_STEPS = 4, 1024, 3
+
+
+def phase21_head_training(smi):
+    """Head distillation at full width against the frozen bf16 target on
+    its own datagen responses, a head checkpoint round trip served by tree,
+    then the head flags of the training and serving CLIs."""
+    import itertools
+    from repro_torch.checkpoint.io import load_draft_heads, save_draft_heads
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.datagen import DatagenConfig, generate_distillation_dataset
+    from repro_torch.core.speculative import SDConfig
+    from repro_torch.data import pack_documents
+    from repro_torch.draftheads import (HeadConfig, HeadDrafter, finetune_heads,
+                                        make_head_train_state)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.spectree.tree import TreeSpec
+    B, S, steps = HEAD_TRAIN_B, HEAD_TRAIN_S, HEAD_TRAIN_STEPS
+    cfg = get_config("llama2-7b-chat")
+    target = Model(cfg, "cuda")
+    t_params = target.init(0)                            # bf16, frozen
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    seeds = serve.make_prompts(16, 128, V, seed=7)
+    data = generate_distillation_dataset(
+        target, t_params, seeds,
+        DatagenConfig(temperatures=(0.0, 0.7), max_response_tokens=64),
+        gen=torch.Generator(device=target.device).manual_seed(0))
+    datagen_s = time.perf_counter() - t0
+    batch = pack_documents(data, S)[:B]
+    assert batch.shape == (B, S) and ((batch >= 0) & (batch < V)).all()
+    tc = TrainConfig(warmup_steps=1, total_steps=100)
+    t_sum = param_checksum(t_params)
+    runs, trained = {}, {}
+    for kind in HEAD_KINDS:
+        drafter = HeadDrafter(HeadConfig.for_target(kind, cfg))
+        state = make_head_train_state(drafter, 1, target.device)
+        before = param_checksum(state["params"])
+        marks = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        state, hist = finetune_heads(drafter, target, state, t_params,
+                                     itertools.repeat(batch), tc, steps,
+                                     "tvdpp", log_every=1,
+                                     callback=lambda i, m: marks.append(
+                                         time.perf_counter()))
+        torch.cuda.synchronize()
+        step_ms = [1e3 * (b - a) for a, b in zip([t1] + marks[:-1], marks)]
+        runs[kind] = {"steps": steps, "batch": [B, S], "loss_kind": "tvdpp",
+                      "param_count": drafter.hc.param_count(),
+                      "step_ms": step_ms,
+                      "ms_per_step": sum(step_ms[1:]) / len(step_ms[1:]),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": dict(ops.LAUNCHES),
+                      **{k: [h[k] for h in hist]
+                         for k in ("loss", "distill_loss", "feat_l2", "grad_norm")}}
+        assert all(math.isfinite(h[k]) for h in hist
+                   for k in ("loss", "distill_loss", "feat_l2")), hist
+        assert all(p.dtype == torch.float32 for p in _leaves(state["params"]))
+        assert param_checksum(state["params"]) != before, f"{kind} did not move"
+        trained[kind] = (drafter, state["params"])
+        del state
+        torch.cuda.empty_cache()
+    assert param_checksum(t_params) == t_sum, "target parameters changed"
+
+    # checkpoint round trip, served by tree with the loaded (bf16) heads
+    drafter, params = trained["eagle"]
+    ckpt = ROOT / "build" / "heads_phase21.npz"
+    save_draft_heads(str(ckpt), drafter, params)
+    loaded = load_draft_heads(str(ckpt), drafter, target.device, cfg.compute_dtype)
+    assert all(torch.equal(a.to(b.dtype), b)
+               for a, b in zip(_leaves(params), _leaves(loaded)))
+    spec, sdc = TreeSpec((2, 2)), SDConfig(temperature=0.7)
+    ops.reset_launches()
+    toks, stats = serve.serve_tree(target, t_params, drafter, loaded,
+                                   serve.make_prompts(4, 128, V), 16, sdc, spec)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["tree_attention"] == stats.rounds * cfg.num_layers
+    served = {"rounds": stats.rounds, "tau": stats.tau,
+              "tree_attention": ops.LAUNCHES["tree_attention"]}
+    del target, t_params, trained, params, loaded
+    torch.cuda.empty_cache()
+    cli = head_clis()
+    emit({"phase": 21, "arch": cfg.name, "target_dtype": cfg.dtype,
+          "head_param_dtype": "float32",
+          "datagen": {"seeds": 16, "prompt_len": 128, "max_new": 64,
+                      "temperatures": [0.0, 0.7], "rows": int(data.shape[0]),
+                      "s": datagen_s},
+          "training": runs, "checkpoint_tree_pass": served, "cli": cli,
+          "nvidia_smi": smi})
+
+
+def _leaves(tree):
+    from repro_torch.optim import tree_leaves
+    return tree_leaves(tree)
+
+
+ROUNDS_FIELD = re.compile(r"\brounds=(\d+)")
+
+
+def head_clis():
+    """The training CLI distills EAGLE heads of the reduced config and saves
+    them; the serving CLI serves that checkpoint by tree; the continuous
+    serving CLI serves the chat mix at full width by tree with EAGLE heads.
+    Each must exit 0; tree_attention launches are checked against the
+    target's layers (per round where the CLI prints its rounds), and no
+    other kernel may launch."""
+    ckpt = str(ROOT / "build" / "heads_cli.npz")
+    mod = [sys.executable, "-m"]
+    runs = {
+        "train": (mod + ["repro_torch.launch.train", "--arch", "llama2-7b-chat",
+                         "--reduced", "--draft-head", "eagle", "--steps", "20",
+                         "--save", ckpt], None),
+        "serve_tree": (mod + ["repro_torch.launch.serve", "--arch",
+                              "llama2-7b-chat", "--reduced", "--draft-head",
+                              "eagle", "--head-ckpt", ckpt, "--tree",
+                              "--temperature", "0.7"], 2),
+        "serve_continuous_tree": (
+            mod + ["repro_torch.launch.serve", "--arch", "llama2-7b-chat",
+                   "--continuous", "--tree", "--draft-head", "eagle",
+                   "--traffic-mix", CONT_MIX, "--requests", str(CONT_N),
+                   "--arrival-rate", str(CONT_RATE), "--temperature", "0.7"], 32),
+    }
+    out = {}
+    for name, (cmd, layers) in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=ROOT,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        found = LAUNCH_LINE.search(proc.stdout)
+        rounds = ROUNDS_FIELD.search(proc.stdout)
+        run = out[name] = {
+            "cmd": " ".join(cmd[2:]), "rc": proc.returncode,
+            "s": time.perf_counter() - t0,
+            "launches": json.loads(found[1]) if found else None,
+            "rounds": int(rounds[1]) if rounds else None,
+            "loss": [float(x) for _, x in STEP_LOSS.findall(proc.stdout)],
+            "stdout": proc.stdout.strip().splitlines()[-8:],
+            "stderr": proc.stderr.strip().splitlines()[-3:]}
+        if layers is None:
+            ok = (proc.returncode == 0 and len(run["loss"]) == 5
+                  and all(math.isfinite(x) for x in run["loss"])
+                  and "saved eagle head params" in proc.stdout)
+        else:
+            la = run["launches"] or {}
+            n = la.get("tree_attention", 0)
+            ok = (proc.returncode == 0 and n > 0 and n % layers == 0
+                  and all(v == 0 for k, v in la.items() if k != "tree_attention")
+                  and (run["rounds"] is None or n == layers * run["rounds"]))
+            if name == "serve_continuous_tree":
+                served = CONT_LINE.search(proc.stdout)
+                ok = ok and run["rounds"] is not None and served is not None \
+                    and int(served[1]) == CONT_N
+        if not ok:
+            emit({"phase": 21, "cli": out})
+            raise AssertionError(f"head CLI run {name} failed: {run}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2069,11 +2459,14 @@ def main():
     launches["flash_decode"], fd_timing = phase12_flash_decode(models, smi)
     timings.update(fd_timing)
     continuous = phase16_continuous_serving(models, smi)
+    head_launches = phase19_head_serving(models, smi)
     del models
     torch.cuda.empty_cache()
     phase5_greedy_exactness()
     torch.cuda.empty_cache()
     cont_exact = phase17_continuous_greedy_exactness()
+    torch.cuda.empty_cache()
+    phase20_head_greedy_exactness()
     torch.cuda.empty_cache()
     timings.update(phase6_distill_kernels())
     launches.update({k: v for k, v in phase7_training(smi).items()
@@ -2093,6 +2486,8 @@ def main():
     phase14_train_cli(smi)
     phase15_reduced_tree_cli(smi)
     phase18_continuous_cli(smi)
+    phase21_head_training(smi)
+    torch.cuda.empty_cache()
     timings.update(phase9_quant_kernels())
     kernels = []
     for name, (route, source, replaces) in KERNEL_ROUTES.items():
@@ -2106,6 +2501,10 @@ def main():
         kernels[-1]["continuous_path_launches"] = (
             continuous["tree"]["launches"][name] if name == "tree_attention"
             else cont_exact["int8_weights_fp_kv"][name])
+        # launches on the draft-head path: phase 19's tree passes (static
+        # EAGLE and Medusa, continuous EAGLE); no other kernel runs there
+        kernels[-1]["head_path_launches"] = (
+            head_launches if name == "tree_attention" else 0)
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -17,6 +17,9 @@ leaf is three keys ending in ``.q``, ``.scale`` and ``.pre``, and
 ``save_quantized`` adds a ``__quant_meta__`` entry with each one's (bits,
 group, has pre). They become the port's ``quant.QWeight``, with ``q`` kept
 int8 (int8 layout) or uint8 (packed int4) and the scales in float32.
+
+Draft-head parameters (``repro.draftheads``) come across through
+``head_params_from_jax``, from a pytree or a ``save_draft_heads`` file.
 """
 from __future__ import annotations
 
@@ -31,7 +34,10 @@ from .quant.qweight import QWeight
 
 _KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
 _NORMS = ("norm1", "norm2", "final_norm")
+# norms of the draft heads: the eagle block's three, and medusa's (K, D)
+_HEAD_NORMS = ("norm1", "norm2", "out_norm", "norm")
 _META_KEY = "__quant_meta__"
+_HEAD_META_KEY = "__drafthead_meta__"
 _QFIELDS = ("q", "scale", "pre")
 
 
@@ -88,11 +94,11 @@ def _is_qnode(node) -> bool:
     return all(hasattr(node, a) for a in ("q", "scale", "pre", "bits", "group"))
 
 
-def _convert(tree, device, dtype, name=None):
+def _convert(tree, device, dtype, name=None, norms=_NORMS):
     if isinstance(tree, dict):
-        return {k: _convert(v, device, dtype, k) for k, v in tree.items()}
+        return {k: _convert(v, device, dtype, k, norms) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_convert(v, device, dtype) for v in tree]
+        return [_convert(v, device, dtype, norms=norms) for v in tree]
     if _is_qnode(tree):
         def f32(a):
             return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
@@ -101,7 +107,7 @@ def _convert(tree, device, dtype, name=None):
                        pre=None if tree.pre is None else f32(tree.pre),
                        bits=int(tree.bits), group=int(tree.group))
     t = torch.from_numpy(np.array(tree, dtype=np.float32))
-    return t.to(device=device, dtype=torch.float32 if name in _NORMS else dtype)
+    return t.to(device=device, dtype=torch.float32 if name in norms else dtype)
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device, dtype=None):
@@ -154,3 +160,33 @@ def _slice(tree, r):
                        pre=None if tree.pre is None else np.asarray(tree.pre)[r],
                        bits=tree.bits, group=tree.group)
     return np.asarray(tree)[r]
+
+
+def head_params_from_jax(np_tree_or_npz, hc, device, dtype=None):
+    """The port's draft-head parameters from the reference's: a head pytree
+    mapped to numpy, or the flat dict of a reference ``save_draft_heads``
+    file (its config entry is dropped here; ``checkpoint.load_draft_heads``
+    checks it). Matmul weights become ``dtype`` (by default the config's
+    float32; a served head passes its target's compute dtype), norms stay
+    float32. Every leaf's shape is checked against ``hc``."""
+    from .draftheads.heads import head_param_shapes
+    tree = dict(np_tree_or_npz)
+    tree.pop(_HEAD_META_KEY, None)
+    if any(k.startswith("[") for k in tree):
+        tree = _unflatten(tree)
+    want = head_param_shapes(hc)
+    got = {path: np.shape(leaf) for path, leaf in _paths(tree)}
+    if got != want:
+        raise ValueError(f"{hc.kind} head parameters have shapes {got}; the "
+                         f"config needs {want}")
+    return _convert(tree, torch.device(device),
+                    dtype or getattr(torch, hc.param_dtype), norms=_HEAD_NORMS)
+
+
+def _paths(tree, prefix=()):
+    """(key tuple, leaf) of every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, prefix + (k,))
+    else:
+        yield prefix, tree

@@ -13,9 +13,16 @@ or not the template has one.
 
 A file written by the reference (stacked layer groups) is read by
 ``bridge.params_from_jax(dict(np.load(path)), cfg, device)``.
+
+``save_draft_heads`` writes head parameters beside a ``__drafthead_meta__``
+entry holding the whole ``HeadConfig``, as the reference does; both
+packages write the same keys, so either package's ``load_draft_heads``
+reads the other's file, and a config that differs from the loading
+drafter's raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Any
@@ -27,6 +34,7 @@ from ..quant.calib import named_leaves
 from ..quant.qweight import QWeight
 
 _META_KEY = "__quant_meta__"
+_HEAD_META_KEY = "__drafthead_meta__"
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -139,3 +147,32 @@ def load_quantized(path: str, like: Any) -> Any:
                                  f"template {want}")
             like = _reconcile_pre(like, data, stored)
         return _load_into(data, like, "")
+
+
+# ------------------------------------------------------ draft-head checkpoints
+
+def save_draft_heads(path: str, drafter, head_params) -> None:
+    """Head parameters plus the ``HeadConfig`` they belong to: heads reuse
+    their target's embedding and LM head and read its hidden states, so
+    the file pins kind, widths and head counts."""
+    flat = _flatten(head_params)
+    flat[_HEAD_META_KEY] = np.asarray(json.dumps(dataclasses.asdict(drafter.hc)))
+    _write(path, flat)
+
+
+def load_draft_heads(path: str, drafter, device="cuda", dtype=None) -> Any:
+    """Head parameters for ``drafter`` (a ``draftheads.HeadDrafter``) from a
+    file of either package, on ``device``: matmul weights in ``dtype`` (by
+    default the config's float32), norms in float32. Raises if the stored
+    config differs from the drafter's, or a shape from the config's."""
+    from ..bridge import head_params_from_jax
+    from ..models.model import resolve_device
+    with np.load(path) as data:
+        flat = dict(data)
+    if _HEAD_META_KEY in flat:
+        stored = json.loads(str(flat.pop(_HEAD_META_KEY)))
+        want = dataclasses.asdict(drafter.hc)
+        if stored != want:
+            raise ValueError(f"draft-head config mismatch: file {stored} vs "
+                             f"drafter {want}")
+    return head_params_from_jax(flat, drafter.hc, resolve_device(device), dtype)

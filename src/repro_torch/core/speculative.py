@@ -1,6 +1,6 @@
 """Chain speculative decoding (Leviathan et al. 2023), batched
-(``repro.core.speculative``, with a drafter model: dense per-row caches, or
-the shared paged pool of continuous serving).
+(``repro.core.speculative``, with a drafter model or draft heads: dense
+per-row caches, or the shared paged pool of continuous serving).
 
 Round protocol (committed length per row = L; ``pending`` = the last
 committed token, not yet in either KV cache):
@@ -23,6 +23,14 @@ the null page so their cache writes land there), and ``page_table`` (B,
 max_pages) makes the caches paged pools (models.attention
 .paged_decode_attention), rewound by ``trim_paged_cache``.
 
+With a ``draftheads.HeadDrafter`` as ``draft`` the state holds no
+``d_cache``; ``h_feat`` (B, D) holds the target's final hidden state at
+the last committed position (L + n_acc, one before ``pending``). The draft
+phase makes gamma head calls from it (``head_draft_chain``, which needs
+the target and its parameters for the embedding and LM head), the verify
+pass returns its hidden states, the commit takes ``h_feat`` from slot
+n_acc (inactive rows keep theirs), and only the target cache is rewound.
+
 Randomness comes from one ``torch.Generator``. A round may instead take a
 ``noise`` dict holding the exact draws the reference makes from its round
 key: {"draft": (gamma, B, V) Gumbel, "u": (gamma, B) uniforms,
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ATTN, LOCAL_ATTN
+from ..draftheads.drafter import head_draft_chain, is_head_drafter
 from ..models.model import Model
 from ..quant.kvcache import quantize_kv_cache
 from .metrics import SDStats
@@ -90,26 +99,26 @@ def masked_page_table(state):
     return torch.where(active[:, None], page_table, 0)
 
 
-def rewind_caches(state, d_cache, t_cache, limit):
-    """Keep cache positions <= limit (B,): paged pools through the masked
-    page table, dense caches by their positions."""
+def rewind_cache(state, cache, limit):
+    """Keep cache positions <= limit (B,): a paged pool through the masked
+    page table, a dense cache by its positions."""
     page_table = masked_page_table(state)
     if page_table is None:
-        return trim_attn_cache(d_cache, limit), trim_attn_cache(t_cache, limit)
-    return (trim_paged_cache(d_cache, page_table, limit),
-            trim_paged_cache(t_cache, page_table, limit))
+        return trim_attn_cache(cache, limit)
+    return trim_paged_cache(cache, page_table, limit)
 
 
 def gate_rows(state, new_state):
     """Freeze the inactive rows of a continuous-batching state: their
-    lengths and pending token stay, and the round passes ``active`` and
-    ``page_table`` on."""
+    lengths, pending token and head feature stay, and the round passes
+    ``active`` and ``page_table`` on."""
     active = state.get("active")
     if active is not None:
-        new_state["lengths"] = torch.where(active, new_state["lengths"],
-                                           state["lengths"])
-        new_state["pending"] = torch.where(active, new_state["pending"],
-                                           state["pending"])
+        for name in ("lengths", "pending", "h_feat"):
+            if name in new_state:
+                keep = active if name != "h_feat" else active[:, None]
+                new_state[name] = torch.where(keep, new_state[name],
+                                              state[name])
         new_state["active"] = active
     if state.get("page_table") is not None:
         new_state["page_table"] = state["page_table"]
@@ -155,13 +164,19 @@ def commit_tokens(tokens, lengths, vals, n_acc, active=None):
     return tokens
 
 
-def sd_draft_phase(draft: Model, sdc: SDConfig, d_params, state, gen,
-                   noise=None):
+def sd_draft_phase(draft, sdc: SDConfig, d_params, state, gen, noise=None,
+                   target: Model = None, t_params=None):
     """Sample x_1..x_gamma and keep their draft distributions. Returns
     {"x": (g, B), "p_stack": (g+1, B, V) with the bonus slot zeroed,
-    "d_cache"}."""
+    "d_cache"}; a head drafter (which needs ``target`` and ``t_params``)
+    returns no "d_cache"."""
     g = sdc.gamma
     lengths, pending = state["lengths"], state["pending"]
+    if is_head_drafter(draft):
+        x, p_stack = head_draft_chain(draft, d_params, t_params, target.cfg,
+                                      sdc, state["h_feat"], pending, gen,
+                                      noise)
+        return {"x": x, "p_stack": p_stack}
     d_cache = state["d_cache"]
     page_table = masked_page_table(state)
     xs, ps = [], []
@@ -185,16 +200,21 @@ def sd_draft_phase(draft: Model, sdc: SDConfig, d_params, state, gen,
 
 def sd_verify_phase(target: Model, sdc: SDConfig, t_params, state, draft_out):
     """One target decode over the gamma+1 speculated tokens. Returns
-    {"q_stack": (g+1, B, V), "t_cache"}."""
+    {"q_stack": (g+1, B, V), "t_cache"}, and "t_hid" (B, g+1, D) after a
+    head drafter's draft phase (its output holds no "d_cache")."""
     g = sdc.gamma
     lengths, pending = state["lengths"], state["pending"]
+    head = "d_cache" not in draft_out
     feed = torch.cat([pending[:, None], draft_out["x"].T], dim=1)   # (B, g+1)
     positions = lengths[:, None] + torch.arange(g + 1, device=lengths.device)
-    logits, t_cache = target.decode_step(t_params, feed, positions,
-                                         state["t_cache"],
-                                         page_table=masked_page_table(state))
-    q_stack = probs_from_logits(logits, sdc.temperature, sdc.top_p)
-    return {"q_stack": q_stack.transpose(0, 1), "t_cache": t_cache}
+    out = target.decode_step(t_params, feed, positions, state["t_cache"],
+                             page_table=masked_page_table(state),
+                             return_hidden=head)
+    q_stack = probs_from_logits(out[0], sdc.temperature, sdc.top_p)
+    verify_out = {"q_stack": q_stack.transpose(0, 1), "t_cache": out[1]}
+    if head:
+        verify_out["t_hid"] = out[2]
+    return verify_out
 
 
 def sd_commit_phase(sdc: SDConfig, state, draft_out, verify_out, gen,
@@ -224,44 +244,58 @@ def sd_commit_phase(sdc: SDConfig, state, draft_out, verify_out, gen,
 
     feed = torch.cat([pending[:, None], x.T], dim=1)                    # (B, g+1)
     tokens = commit_tokens(tokens, lengths, feed, n_acc, state.get("active"))
-    d_cache, t_cache = rewind_caches(state, draft_out["d_cache"],
-                                     verify_out["t_cache"], lengths + n_acc)
+    limit = lengths + n_acc                 # keep cache positions <= limit
     new_state = {"tokens": tokens, "lengths": lengths + n_acc + 1,
-                 "pending": new_pending, "d_cache": d_cache,
-                 "t_cache": t_cache}
+                 "pending": new_pending,
+                 "t_cache": rewind_cache(state, verify_out["t_cache"], limit)}
+    if "t_hid" in verify_out:
+        # the feature at the last committed position L + n_acc: verify
+        # slot j sits at position L + j
+        new_state["h_feat"] = verify_out["t_hid"][bidx, n_acc]
+    else:
+        new_state["d_cache"] = rewind_cache(state, draft_out["d_cache"], limit)
     return gate_rows(state, new_state), n_acc
 
 
-def sd_round(draft: Model, target: Model, sdc: SDConfig, d_params, t_params,
+def sd_round(draft, target: Model, sdc: SDConfig, d_params, t_params,
              state, gen, noise=None):
-    """One speculative block. state: {tokens, lengths, pending, d_cache,
-    t_cache}, optionally {active, page_table} (continuous batching); the
-    caches are updated in place. Returns (new_state, n_acc); n_acc of an
-    inactive row is meaningless."""
-    draft_out = sd_draft_phase(draft, sdc, d_params, state, gen, noise)
+    """One speculative block. ``draft`` is a drafter ``Model`` (state:
+    {tokens, lengths, pending, d_cache, t_cache}) or a ``HeadDrafter``
+    (``h_feat`` in place of ``d_cache``); optionally {active, page_table}
+    (continuous batching). The caches are updated in place. Returns
+    (new_state, n_acc); n_acc of an inactive row is meaningless."""
+    draft_out = sd_draft_phase(draft, sdc, d_params, state, gen, noise,
+                               target, t_params)
     verify_out = sd_verify_phase(target, sdc, t_params, state, draft_out)
     return sd_commit_phase(sdc, state, draft_out, verify_out, gen, noise)
 
 
-def _prefill_state(draft: Model, target: Model, d_params, t_params, prompt,
+def _prefill_state(draft, target: Model, d_params, t_params, prompt,
                    max_total, sdc: SDConfig, gen, noise=None):
     """Prefill both models and sample the first pending token (``noise``:
-    its (B, V) Gumbel noise). With ``sdc.kv_quant`` both caches are then
-    converted to the int8 layout; chain and tree rounds share this."""
+    its (B, V) Gumbel noise). With ``sdc.kv_quant`` the caches are then
+    converted to the int8 layout; chain and tree rounds share this. A head
+    drafter has no cache: the target's hidden state at the last prompt
+    position seeds ``h_feat``."""
     B, S = prompt.shape
-    lg_t, t_cache = target.prefill(t_params, prompt, cache_len=max_total)
-    _, d_cache = draft.prefill(d_params, prompt, cache_len=max_total)
-    if sdc.kv_quant:
-        t_cache = quantize_kv_cache(t_cache)
-        d_cache = quantize_kv_cache(d_cache)
+    head = is_head_drafter(draft)
+    out = target.prefill(t_params, prompt, cache_len=max_total,
+                         return_hidden=head)
+    lg_t, t_cache = out[0], out[1]
+    state = {"t_cache": quantize_kv_cache(t_cache) if sdc.kv_quant else t_cache}
+    if head:
+        state["h_feat"] = out[2][:, -1]
+    else:
+        _, d_cache = draft.prefill(d_params, prompt, cache_len=max_total)
+        state["d_cache"] = quantize_kv_cache(d_cache) if sdc.kv_quant else d_cache
     q0 = probs_from_logits(lg_t[:, 0], sdc.temperature, sdc.top_p)
-    pending = sample_from_probs(q0, gen, noise)
     tokens = torch.zeros((B, max_total + sdc.gamma + 2), dtype=torch.long,
                          device=prompt.device)
     tokens[:, :S] = prompt
-    lengths = torch.full((B,), S, dtype=torch.long, device=prompt.device)
-    return {"tokens": tokens, "lengths": lengths, "pending": pending,
-            "t_cache": t_cache, "d_cache": d_cache}
+    state.update(tokens=tokens, pending=sample_from_probs(q0, gen, noise),
+                 lengths=torch.full((B,), S, dtype=torch.long,
+                                    device=prompt.device))
+    return state
 
 
 def run_rounds(round_fn, state, prompt_len: int, max_new_tokens: int):
@@ -286,11 +320,13 @@ def run_rounds(round_fn, state, prompt_len: int, max_new_tokens: int):
     return state, stats
 
 
-def speculative_generate(draft: Model, target: Model, d_params, t_params,
+def speculative_generate(draft, target: Model, d_params, t_params,
                          prompt, max_new_tokens: int, sdc: SDConfig, gen=None):
     """Generate ``max_new_tokens`` per row with chain speculative decoding.
-    prompt: (B, S) int on the models' device. Returns (tokens, stats);
-    stats count only rounds in which a row was still active."""
+    ``draft`` is a drafter ``Model`` or a ``HeadDrafter`` (``d_params``:
+    its head parameters). prompt: (B, S) int on the models' device.
+    Returns (tokens, stats); stats count only rounds in which a row was
+    still active."""
     if gen is None:
         gen = torch.Generator(device=prompt.device).manual_seed(0)
     S = prompt.shape[1]

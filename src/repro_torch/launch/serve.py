@@ -32,6 +32,17 @@ into each request's page table. It composes with ``--tree``,
       --continuous --tree --prefix-cache --traffic-mix chat --requests 16 \
       --arrival-rate 4 --max-batch 8 --temperature 0.7
 
+Self-speculative draft heads (``repro_torch.draftheads``) in place of the
+drafter model: ``--draft-head {eagle,medusa}`` drafts from the target's own
+hidden states, with no second model and no drafter KV cache or pages. It
+composes with ``--tree`` and ``--continuous``; ``--head-ckpt`` loads heads
+trained by ``launch.train --draft-head`` (or written by the reference),
+and without it the heads are drawn from seed 1 (exact at any temperature
+by rejection sampling, only with lower acceptance):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b-chat \
+      --draft-head eagle --tree --temperature 0.7 [--head-ckpt heads.npz]
+
 Weights are random, drawn from fixed seeds (target 0, drafter 1); a model to
 be quantized is drawn in float32, as the reference's parameters are, and its
 unquantized leaves are then cast to the compute dtype. ``--reduced`` serves
@@ -45,10 +56,12 @@ import json
 import numpy as np
 import torch
 
+from ..checkpoint.io import load_draft_heads
 from ..configs import ARCHS, QuantConfig, get_config, reduced
 from ..core.datagen import DatagenConfig, generate_distillation_dataset
 from ..core.metrics import SDStats, latency_percentiles, mbsu
 from ..core.speculative import SDConfig
+from ..draftheads import HeadConfig, HeadDrafter, is_head_drafter
 from ..kernels import ops
 from ..models.model import Model
 from ..quant import cast_unquantized, params_nbytes, quantize_params
@@ -115,6 +128,28 @@ def build_models(arch: str, small: bool, device, quant: QuantConfig = None,
     return target, t_params, draft, d_params, c
 
 
+def build_heads(arch: str, small: bool, device, kind: str,
+                medusa_heads: int = 4, ckpt: str = None):
+    """(target, target params, head drafter, head params, c) for
+    self-speculative serving: the target from seed 0, the heads from seed 1
+    or ``ckpt``, matmul weights in the target's compute dtype; c is the
+    heads' parameter count over the target's (the embedding and LM head
+    are the target's own and not counted)."""
+    cfg = get_config(arch)
+    if small:
+        cfg = reduced(cfg)
+    target = Model(cfg, device)
+    t_params = target.init(0)
+    draft = HeadDrafter(HeadConfig.for_target(kind, cfg,
+                                              num_medusa_heads=medusa_heads))
+    if ckpt:
+        d_params = load_draft_heads(ckpt, draft, target.device, cfg.compute_dtype)
+    else:
+        d_params = draft.init(1, target.device, cfg.compute_dtype)
+    return (target, t_params, draft, d_params,
+            draft.hc.param_count() / count_params(t_params))
+
+
 def make_prompts(n: int, prompt_len: int, vocab: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     return rng.integers(3, vocab, (n, prompt_len)).astype(np.int64)
@@ -166,14 +201,23 @@ def continuous_requests(n: int, prompt_len: int, max_new: int, vocab: int,
             for i in range(n)]
 
 
+def drafter_kw(draft, d_params) -> dict:
+    """``ContinuousEngine`` arguments for a drafter model or a head
+    drafter."""
+    if is_head_drafter(draft):
+        return {"draft_heads": draft, "draft_head_params": d_params}
+    return {"draft": draft, "draft_params": d_params}
+
+
 def serve_continuous(target, t_params, draft, d_params, requests,
                      sdc: SDConfig, tree=None, **engine_kw):
     """Serve ``requests`` through a ``ContinuousEngine`` sized for their
-    longest prompt + max_new. Returns (engine, results)."""
+    longest prompt + max_new; ``draft`` is a drafter model or a head
+    drafter. Returns (engine, results)."""
     max_seq = max(len(r.prompt) + r.max_new_tokens for r in requests)
-    engine = ContinuousEngine(target=target, target_params=t_params,
-                              draft=draft, draft_params=d_params, sd=sdc,
-                              tree=tree, max_seq_len=max_seq, **engine_kw)
+    engine = ContinuousEngine(target=target, target_params=t_params, sd=sdc,
+                              tree=tree, max_seq_len=max_seq,
+                              **drafter_kw(draft, d_params), **engine_kw)
     for r in requests:
         engine.submit(r)
     return engine, engine.run()
@@ -253,6 +297,13 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--no-draft", action="store_true", help="AR baseline")
+    ap.add_argument("--draft-head", choices=("eagle", "medusa"), default=None,
+                    help="self-speculative draft heads in place of the "
+                         "drafter model")
+    ap.add_argument("--medusa-heads", type=int, default=4,
+                    help="number of parallel Medusa heads (offsets +1..+K)")
+    ap.add_argument("--head-ckpt", default=None,
+                    help="head checkpoint from launch.train --draft-head")
     ap.add_argument("--tree", action="store_true",
                     help="tree-structured speculation")
     ap.add_argument("--tree-depth", type=int, default=2,
@@ -304,14 +355,29 @@ def main(argv=None):
         ap.error("--quant-target requires --quant-weights {int8,int4}")
     if args.quant_weights is not None and args.no_draft:
         raise SystemExit("--quant-weights applies to the drafter")
+    if args.draft_head is not None:
+        if args.no_draft:
+            raise SystemExit("--draft-head and --no-draft are exclusive")
+        if args.quant_weights is not None:
+            raise SystemExit("--quant-weights applies to the separate "
+                             "drafter model; not supported with --draft-head")
+    elif args.head_ckpt is not None:
+        ap.error("--head-ckpt requires --draft-head")
 
     quant = (QuantConfig(weights=args.quant_weights,
                          group_size=args.quant_group)
              if args.quant_weights else None)
-    target, t_params, draft, d_params, c = build_models(
-        args.arch, args.reduced, args.device, quant, args.quant_target,
-        args.calib_seqs, args.prompt_len)
-    print(f"arch={target.cfg.name} draft={draft.cfg.name} c={c:.4f} "
+    if args.draft_head is not None:
+        target, t_params, draft, d_params, c = build_heads(
+            args.arch, args.reduced, args.device, args.draft_head,
+            args.medusa_heads, args.head_ckpt)
+        draft_name = f"{args.draft_head}-head"
+    else:
+        target, t_params, draft, d_params, c = build_models(
+            args.arch, args.reduced, args.device, quant, args.quant_target,
+            args.calib_seqs, args.prompt_len)
+        draft_name = draft.cfg.name
+    print(f"arch={target.cfg.name} draft={draft_name} c={c:.4f} "
           f"device={target.device}")
     if quant is not None:
         print(f"quantized weights={args.quant_weights} "

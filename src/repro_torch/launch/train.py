@@ -13,6 +13,17 @@ arch's randomly initialised target; only the target's parameters are built,
 since the frozen target takes no optimizer step. ``--save`` writes the
 trained parameters with ``checkpoint.save``.
 
+``--draft-head {eagle,medusa}`` distills self-speculative draft heads
+instead of a drafter (``repro_torch.draftheads``): the target answers
+``--datagen-seqs`` corpus seeds (``core.datagen``, temperatures 0 and 0.7),
+those responses are mixed 9:1 with the pretraining chunks, and the heads
+train against the target's live hidden states; ``--save`` then writes a
+head checkpoint (``checkpoint.save_draft_heads``) that ``launch.serve
+--draft-head ... --head-ckpt`` loads:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-7b-chat \
+      --reduced --steps 50 --draft-head eagle --save heads.npz
+
 The synthetic corpus holds six V x V float64 transition matrices, so a
 full-width vocabulary (Llama-2's 32000: 49 GB) is refused; ``--reduced``
 cuts it to 512.
@@ -22,12 +33,16 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
-from ..checkpoint.io import save
+from ..checkpoint.io import save, save_draft_heads
 from ..configs import ARCHS, get_config, reduced
 from ..configs.base import TrainConfig
+from ..core.datagen import DatagenConfig, generate_distillation_dataset
 from ..data import SyntheticCorpus, mixed_batches, pack_documents, simple_batches
+from ..draftheads import (HeadConfig, HeadDrafter, finetune_heads,
+                          make_head_train_state)
 from ..models.model import Model
 from ..training import finetune, make_train_state, train
 
@@ -47,6 +62,14 @@ def main(argv=None):
     ap.add_argument("--phase", choices=("pretrain", "distill"), default="pretrain")
     ap.add_argument("--loss", default="tvdpp",
                     choices=("kld", "kld_bwd", "jsd", "tvd", "tvdpp"))
+    ap.add_argument("--draft-head", choices=("eagle", "medusa"), default=None,
+                    help="distill self-speculative draft heads instead of a "
+                         "drafter (implies --phase distill)")
+    ap.add_argument("--medusa-heads", type=int, default=4,
+                    help="number of parallel Medusa heads (offsets +1..+K)")
+    ap.add_argument("--datagen-seqs", type=int, default=8,
+                    help="seed sequences of the datagen distillation set "
+                         "(--draft-head only)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -73,6 +96,9 @@ def main(argv=None):
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seed=args.seed)
     chunks = pack_documents(corpus.pretrain_docs(600, args.seq * 2), args.seq)
     t0 = time.time()
+    if args.draft_head is not None:
+        train_heads(args, model, chunks, tc, t0)
+        return
     if args.phase == "pretrain":
         state = make_train_state(model, args.seed, tc)
         state, _ = train(model, state, simple_batches(chunks, args.batch),
@@ -94,6 +120,34 @@ def main(argv=None):
     if args.save:
         save(args.save, state["params"])
         print(f"saved params -> {args.save}")
+
+
+def train_heads(args, model, chunks, tc, t0):
+    """Distill draft heads against the arch's seeded float32 target on
+    target-generated responses mixed 9:1 with ``chunks``."""
+    cfg = model.cfg
+    drafter = HeadDrafter(HeadConfig.for_target(
+        args.draft_head, cfg, num_medusa_heads=args.medusa_heads))
+    t_params = model.init(args.seed, dtype=getattr(torch, cfg.param_dtype))
+    seed_len = max(args.seq // 2, 1)
+    seeds = np.asarray(chunks[:args.datagen_seqs, :seed_len])
+    data = generate_distillation_dataset(
+        model, t_params, seeds,
+        DatagenConfig(temperatures=(0.0, 0.7),
+                      max_response_tokens=args.seq - seed_len,
+                      batch_size=args.datagen_seqs),
+        gen=torch.Generator(device=model.device).manual_seed(args.seed))
+    state = make_head_train_state(drafter, args.seed + 1, model.device)
+    state, _ = finetune_heads(
+        drafter, model, state, t_params,
+        mixed_batches(data, chunks, args.batch, mix=tc.distill_mix),
+        tc, args.steps, loss_kind=args.loss, log_every=max(args.steps // 5, 1),
+        callback=lambda s, m: print(f"step {s}: {m}"))
+    print(f"done in {time.time() - t0:.1f}s ({args.draft_head} heads, "
+          f"{drafter.hc.param_count()} params)")
+    if args.save:
+        save_draft_heads(args.save, drafter, state["params"])
+        print(f"saved {args.draft_head} head params -> {args.save}")
 
 
 if __name__ == "__main__":

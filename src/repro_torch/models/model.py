@@ -6,8 +6,17 @@ the reference does: the lm-head matmul and softmax of one chunk of
 ``LOSS_CHUNK`` positions run under ``torch.utils.checkpoint``, so the full
 (B, S, V) fp32 logits never exist at once and backward recomputes each
 chunk's logits instead of storing them.
+
+``capture_hidden`` is the draft heads' tap (``repro_torch.draftheads``):
+while its scope is open, every ``Model.hidden``/``logits`` call records its
+final hidden states into the innermost scope's box, so head training gets
+the teacher's logits and features from one target forward. The reference
+taps at trace time inside jit; here the tap is eager and the box holds the
+tensor itself.
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -17,6 +26,21 @@ from ..configs.base import ModelConfig
 from . import transformer as tfm
 
 LOSS_CHUNK = 512
+
+# boxes of the open ``capture_hidden`` scopes, innermost last
+_HIDDEN_TAPS: list = []
+
+
+@contextmanager
+def capture_hidden():
+    """``with capture_hidden() as box: target.logits(...)`` leaves the
+    (B, S, D) final hidden states of that call in ``box["hidden"]``."""
+    box: dict = {}
+    _HIDDEN_TAPS.append(box)
+    try:
+        yield box
+    finally:
+        _HIDDEN_TAPS.remove(box)
 
 
 def resolve_device(device) -> torch.device:
@@ -75,7 +99,10 @@ class Model:
         """tokens (B, S) -> final hidden states (B, S, D) of a training
         forward (no caches). The reference also returns an MoE aux loss,
         always 0 for the dense models the port has."""
-        return tfm.backbone(params, tokens, self.cfg, mode="train")[0]
+        h = tfm.backbone(params, tokens, self.cfg, mode="train")[0]
+        if _HIDDEN_TAPS:
+            _HIDDEN_TAPS[-1]["hidden"] = h
+        return h
 
     def logits(self, params, tokens):
         return tfm.logits_from_hidden(params, self.hidden(params, tokens),
@@ -89,24 +116,31 @@ class Model:
         loss = s / c.clamp(min=1)
         return loss, {"ce": loss}
 
-    def prefill(self, params, tokens, cache_len: int, positions=None):
+    def prefill(self, params, tokens, cache_len: int, positions=None,
+                return_hidden: bool = False):
         """tokens (B, S) -> (logits of the last position (B, 1, V) fp32,
-        caches of ``cache_len`` slots)."""
+        caches of ``cache_len`` slots), plus the (B, S, D) final hidden
+        states with ``return_hidden`` (draft heads seed their feature from
+        the last prompt position)."""
         h, cache = tfm.backbone(params, tokens, self.cfg, mode="prefill",
                                 positions=positions, cache_len=cache_len)
-        return tfm.logits_from_hidden(params, h[:, -1:], self.cfg), cache
+        logits = tfm.logits_from_hidden(params, h[:, -1:], self.cfg)
+        return (logits, cache, h) if return_hidden else (logits, cache)
 
     def decode_step(self, params, tokens, positions, cache, slots=None,
-                    attn_mask=None, page_table=None):
+                    attn_mask=None, page_table=None,
+                    return_hidden: bool = False):
         """tokens (B, T) new ids, positions (B, T) absolute -> (logits
-        (B, T, V) fp32, cache). ``slots``/``attn_mask`` serve tree
-        speculation: storage slots for nodes that share a RoPE position, and
-        an ancestor mask replacing positional causality. With
-        ``page_table`` (B, max_pages) the attention layers read and write
-        the shared paged pool (``init_paged_cache``) instead of per-row
-        caches."""
+        (B, T, V) fp32, cache), plus the (B, T, D) final hidden states the
+        logits came from with ``return_hidden`` (the verify pass hands them
+        to draft heads). ``slots``/``attn_mask`` serve tree speculation:
+        storage slots for nodes that share a RoPE position, and an ancestor
+        mask replacing positional causality. With ``page_table`` (B,
+        max_pages) the attention layers read and write the shared paged
+        pool (``init_paged_cache``) instead of per-row caches."""
         h, cache = tfm.backbone(params, tokens, self.cfg, mode="decode",
                                 positions=positions, cache=cache,
                                 slots=slots, attn_mask=attn_mask,
                                 page_table=page_table)
-        return tfm.logits_from_hidden(params, h, self.cfg), cache
+        logits = tfm.logits_from_hidden(params, h, self.cfg)
+        return (logits, cache, h) if return_hidden else (logits, cache)

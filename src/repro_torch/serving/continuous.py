@@ -46,11 +46,17 @@ reference seeds its key (the reference splits a JAX key per round, so
 sampled tokens agree with it only at temperature 0). The clock is
 ``time.perf_counter``.
 
+With ``draft_heads`` (a ``draftheads.HeadDrafter``) and
+``draft_head_params`` in place of ``draft``/``draft_params`` the engine is
+self-speculative: no drafter pool is allocated, prefill chunks run the
+target alone with ``return_hidden``, and the last chunk seeds the slot's
+``h_feat`` (the target's compute dtype) from the last prompt position.
+
 Not ported yet (ROADMAP): the reference engine's observability fields
 (``tracer``, ``registry``, ``metrics_out``, ``time_phases``, ``quality``,
-``flight_record``, ``slo``) wait for the observability slice, and
-``draft_heads`` for the draft-heads slice; this engine has no such fields.
-Recurrent models are refused with ``ValueError``, as in the reference.
+``flight_record``, ``slo``) wait for the observability slice; this engine
+has no such fields. Recurrent models are refused with ``ValueError``, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -65,6 +71,7 @@ from ..core.metrics import RequestStats, ServingTelemetry
 from ..core.sampling import probs_from_logits, sample_from_probs
 from ..core.speculative import (SDConfig, attention_only, sd_round,
                                 trim_paged_cache)
+from ..draftheads.drafter import HeadDrafter
 from ..models.model import Model
 from ..spectree.round import tree_round
 from ..spectree.tree import TreeSpec
@@ -100,6 +107,10 @@ class ContinuousEngine:
     target_params: object
     draft: Model = None
     draft_params: object = None
+    # self-speculative alternative to a drafter model (draftheads): no
+    # drafter pool, and prefill feeds only the target
+    draft_heads: Optional[HeadDrafter] = None
+    draft_head_params: object = None
     sd: SDConfig = field(default_factory=SDConfig)
     tree: Optional[TreeSpec] = None    # tree-speculative rounds (spectree)
     max_batch: int = 8                 # concurrent decode slots
@@ -120,14 +131,24 @@ class ContinuousEngine:
     sanitize_every: int = 8
 
     def __post_init__(self):
-        if self.draft is None:
+        if self.draft is None and self.draft_heads is None:
             raise ValueError("continuous engine is speculative-only; pass a "
-                             "draft model")
-        for m, name in ((self.target, "target"), (self.draft, "draft")):
+                             "draft model or draft_heads")
+        if self.draft is not None and self.draft_heads is not None:
+            raise ValueError("pass either draft or draft_heads, not both")
+        models = [(self.target, "target")]
+        if self.draft is not None:
+            models.append((self.draft, "draft"))
+        for m, name in models:
             if not attention_only(m.cfg):
                 raise ValueError(
                     f"{name} has recurrent layers; the paged KV pool supports "
                     "attention-only models")
+        if self.draft_heads is not None:
+            if self.tree is not None:
+                self.draft_heads.validate_tree(self.tree.depth)
+            else:
+                self.draft_heads.validate_chain(self.sd.gamma)
         g = self.sd.gamma
         # tokens committable per decode round (accepted + pending) and the
         # per-row storage overshoot: a chain round writes at most gamma+1
@@ -160,9 +181,17 @@ class ContinuousEngine:
             "page_table": zeros(B, max_pages),
             "t_cache": self.target.init_paged_cache(
                 self.num_pages, self.page_size, kv_quant=self.kv_quant),
-            "d_cache": self.draft.init_paged_cache(
-                self.num_pages, self.page_size, kv_quant=self.kv_quant),
         }
+        if self.draft_heads is not None:
+            # no drafter pool: h_feat carries each slot's target feature
+            self._state["h_feat"] = zeros(B, self.target.cfg.d_model,
+                                          dtype=self.target.cfg.compute_dtype)
+            self._drafter, self._d_params = (self.draft_heads,
+                                             self.draft_head_params)
+        else:
+            self._state["d_cache"] = self.draft.init_paged_cache(
+                self.num_pages, self.page_size, kv_quant=self.kv_quant)
+            self._drafter, self._d_params = self.draft, self.draft_params
         self._slots = [_Slot() for _ in range(B)]
         self._lengths_h = np.zeros((B,), np.int64)
         self._table_h = np.zeros((B, max_pages), np.int64)
@@ -229,7 +258,9 @@ class ContinuousEngine:
             len(req.prefix_pages) * page_size > req.prefix_hit
 
     def _caches(self):
-        return self._state["d_cache"], self._state["t_cache"]
+        """The paged pools: the target's, and the drafter model's if any."""
+        return [self._state[n] for n in ("d_cache", "t_cache")
+                if n in self._state]
 
     def _evict_one(self, protect) -> bool:
         """Drop the LRU prefix-cache leaf; invalidate pages actually freed."""
@@ -299,8 +330,9 @@ class ContinuousEngine:
     # ---------------------------------------------------------------- prefill
     def _prefill_one_chunk(self, i: int) -> Optional[int]:
         """Feed the next ``prefill_chunk`` prompt tokens of slot i through
-        the paged decode path of both models; after the last chunk, sample
-        the first token and return it (one host fetch), else None."""
+        the paged decode path of both models (of the target alone with draft
+        heads); after the last chunk, sample the first token and return it
+        (one host fetch), else None."""
         slot, st = self._slots[i], self._state
         req, C = slot.req, self.prefill_chunk
         start = slot.prefill_pos
@@ -310,10 +342,15 @@ class ContinuousEngine:
         toks = _to_device(chunk, self.device)
         positions = torch.arange(start, start + C, device=self.device)[None]
         table = st["page_table"][i:i + 1]
-        _, st["d_cache"] = self.draft.decode_step(
-            self.draft_params, toks, positions, st["d_cache"], page_table=table)
-        logits, st["t_cache"] = self.target.decode_step(
-            self.target_params, toks, positions, st["t_cache"], page_table=table)
+        heads = self.draft_heads is not None
+        if not heads:
+            _, st["d_cache"] = self.draft.decode_step(
+                self.draft_params, toks, positions, st["d_cache"],
+                page_table=table)
+        out = self.target.decode_step(self.target_params, toks, positions,
+                                      st["t_cache"], page_table=table,
+                                      return_hidden=heads)
+        logits, st["t_cache"] = out[0], out[1]
         slot.prefill_pos = start + real
         self.telemetry.prefill_chunks += 1
         if slot.prefill_pos < slot.prompt_len:
@@ -331,6 +368,8 @@ class ContinuousEngine:
         for cache in self._caches():
             trim_paged_cache(cache, table, limit)
         last = slot.prompt_len - 1 - start
+        if heads:
+            st["h_feat"][i] = out[2][0, last]
         p = probs_from_logits(logits[0, last], self.sd.temperature,
                               self.sd.top_p)
         tok = sample_from_probs(p, self._gen)
@@ -389,10 +428,10 @@ class ContinuousEngine:
 
     def _round(self, st):
         if self.tree is not None:
-            return tree_round(self.draft, self.target, self.sd, self.tree,
-                              self.draft_params, self.target_params, st,
+            return tree_round(self._drafter, self.target, self.sd, self.tree,
+                              self._d_params, self.target_params, st,
                               self._gen)
-        return sd_round(self.draft, self.target, self.sd, self.draft_params,
+        return sd_round(self._drafter, self.target, self.sd, self._d_params,
                         self.target_params, st, self._gen)
 
     def _decode_round(self) -> List[tuple]:

@@ -1,6 +1,8 @@
 """Static-batching serving engine (``repro.serving.engine``): requests are
 grouped by (prompt length, max_new) into fixed-size batches, and each batch
-runs as one speculative (or autoregressive) generation."""
+runs as one speculative (or autoregressive) generation. ``draft`` is a
+drafter ``Model`` or a ``draftheads.HeadDrafter`` (``draft_params``: its
+head parameters), as the reference takes either by duck typing."""
 from __future__ import annotations
 
 import time
@@ -36,7 +38,7 @@ class Result:
 class ServingEngine:
     target: Model
     target_params: object
-    draft: Optional[Model] = None
+    draft: Optional[object] = None     # Model or HeadDrafter; None: AR
     draft_params: object = None
     sd: SDConfig = field(default_factory=SDConfig)
     batch_size: int = 8

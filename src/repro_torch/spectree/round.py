@@ -1,7 +1,7 @@
 """Tree-structured speculative decoding round (``repro.spectree.round``,
-with a drafter model: dense per-row caches, or the shared paged pool of
-continuous serving, with the ``active``/``page_table`` state keys of
-``core.speculative.sd_round``).
+with a drafter model or draft heads: dense per-row caches, or the shared
+paged pool of continuous serving, with the ``active``/``page_table`` state
+keys of ``core.speculative.sd_round``).
 
   draft  : level-by-level expansion. At each level the drafter scores all
            of the level's nodes in ONE decode call (siblings share RoPE
@@ -22,8 +22,16 @@ continuous serving, with the ``active``/``page_table`` state keys of
            to a page through the row's page table; masked-out rows write
            to the null page.
 
+With a ``draftheads.HeadDrafter`` the draft phase expands the tree from
+the target's hidden state ``h_feat`` (``head_draft_tree``) and keeps no
+drafter cache; the verify pass returns the nodes' hidden states, and the
+commit takes ``h_feat`` from the deepest accepted node (the ancestor mask
+makes its hidden state the one a chain forward over its root path gives).
+
 Every tree-masked decode call goes through the tree attention kernel, so
-one round launches it (depth+1) * drafter layers + target layers times.
+one round launches it (depth+1) * drafter layers + target layers times
+with a drafter model, and target layers times with draft heads (the
+heads' in-round attention is plain torch, as in the reference).
 
 A round may take a ``noise`` dict with the reference's draws from its
 round key: {"draft": [per level (B, n_d, k_d, V) Gumbel], "u": [per depth
@@ -37,6 +45,7 @@ from ..core.sampling import probs_from_logits, sample_from_probs
 from ..core.speculative import (SDConfig, _pick, _prefill_state,
                                 attention_only, commit_tokens, gate_rows,
                                 masked_page_table, run_rounds)
+from ..draftheads.drafter import head_draft_tree, is_head_drafter
 from ..models.model import Model
 from .tree import TreeSpec, tree_attn_mask
 
@@ -123,10 +132,17 @@ def commit_path(state, cache, path_nodes, n_acc, num_nodes):
                                   path_nodes, n_acc, num_nodes)
 
 
-def tree_draft_phase(draft: Model, sdc: SDConfig, spec: TreeSpec, d_params,
-                     state, gen, noise=None):
+def tree_draft_phase(draft, sdc: SDConfig, spec: TreeSpec, d_params,
+                     state, gen, noise=None, target: Model = None,
+                     t_params=None):
     """Level-by-level tree expansion. Returns {"node_tok": (N, B),
-    "p_node": (N, B, V), "d_cache"}."""
+    "p_node": (N, B, V), "d_cache"}; a head drafter (which needs
+    ``target`` and ``t_params``) returns no "d_cache"."""
+    if is_head_drafter(draft):
+        node_tok, p_node = head_draft_tree(
+            draft, d_params, t_params, target.cfg, sdc, spec, state["h_feat"],
+            state["pending"], gen, noise)
+        return {"node_tok": node_tok, "p_node": p_node}
     if not attention_only(draft.cfg):
         raise ValueError("tree speculative decoding requires an "
                          "attention-only drafter (per-node cache slots)")
@@ -164,7 +180,8 @@ def tree_draft_phase(draft: Model, sdc: SDConfig, spec: TreeSpec, d_params,
 def tree_verify_phase(target: Model, sdc: SDConfig, spec: TreeSpec, t_params,
                       state, draft_out):
     """ONE target decode over all N tree nodes under the ancestor mask.
-    Returns {"q_node": (N, B, V), "t_cache"}."""
+    Returns {"q_node": (N, B, V), "t_cache"}, and "t_hid" (B, N, D) after a
+    head drafter's draft phase (its output holds no "d_cache")."""
     if not attention_only(target.cfg):
         raise ValueError("tree speculative decoding requires an "
                          "attention-only target (per-node cache slots)")
@@ -177,12 +194,15 @@ def tree_verify_phase(target: Model, sdc: SDConfig, spec: TreeSpec, t_params,
     slot_pos = lengths[:, None] + torch.arange(N, device=dev)[None]
     amask = tree_attn_mask(spec, 0, N, lengths,
                            _cache_view_width(t_cache, page_table))
-    logits, t_cache = target.decode_step(t_params, draft_out["node_tok"].T,
-                                         rope, t_cache, slots=slot_pos,
-                                         attn_mask=amask,
-                                         page_table=page_table)
-    q_node = probs_from_logits(logits, sdc.temperature, sdc.top_p)
-    return {"q_node": q_node.transpose(0, 1), "t_cache": t_cache}
+    head = "d_cache" not in draft_out
+    out = target.decode_step(t_params, draft_out["node_tok"].T, rope, t_cache,
+                             slots=slot_pos, attn_mask=amask,
+                             page_table=page_table, return_hidden=head)
+    q_node = probs_from_logits(out[0], sdc.temperature, sdc.top_p)
+    verify_out = {"q_node": q_node.transpose(0, 1), "t_cache": out[1]}
+    if head:
+        verify_out["t_hid"] = out[2]
+    return verify_out
 
 
 def tree_commit_phase(sdc: SDConfig, spec: TreeSpec, state, draft_out,
@@ -238,24 +258,31 @@ def tree_commit_phase(sdc: SDConfig, spec: TreeSpec, state, draft_out,
     N = spec.num_nodes
     new_state = {
         "tokens": tokens, "lengths": lengths + n_acc + 1, "pending": new_pending,
-        "d_cache": commit_path(state, draft_out["d_cache"], path_nodes, n_acc, N),
         "t_cache": commit_path(state, verify_out["t_cache"], path_nodes, n_acc,
                                N)}
+    if "t_hid" in verify_out:
+        # the feature of the deepest accepted node, at position L + n_acc
+        new_state["h_feat"] = verify_out["t_hid"][bidx, cur]
+    else:
+        new_state["d_cache"] = commit_path(state, draft_out["d_cache"],
+                                           path_nodes, n_acc, N)
     return gate_rows(state, new_state), n_acc
 
 
-def tree_round(draft: Model, target: Model, sdc: SDConfig, spec: TreeSpec,
+def tree_round(draft, target: Model, sdc: SDConfig, spec: TreeSpec,
                d_params, t_params, state, gen, noise=None):
-    """One tree-speculative block; same state contract as ``sd_round``.
-    Returns (new_state, n_acc) with n_acc = accepted draft tokens."""
-    draft_out = tree_draft_phase(draft, sdc, spec, d_params, state, gen, noise)
+    """One tree-speculative block; same state contract as ``sd_round``
+    (``draft`` a drafter ``Model`` or a ``HeadDrafter``). Returns
+    (new_state, n_acc) with n_acc = accepted draft tokens."""
+    draft_out = tree_draft_phase(draft, sdc, spec, d_params, state, gen, noise,
+                                 target, t_params)
     verify_out = tree_verify_phase(target, sdc, spec, t_params, state,
                                    draft_out)
     return tree_commit_phase(sdc, spec, state, draft_out, verify_out, gen,
                              noise)
 
 
-def tree_speculative_generate(draft: Model, target: Model, d_params, t_params,
+def tree_speculative_generate(draft, target: Model, d_params, t_params,
                               prompt, max_new_tokens: int, sdc: SDConfig,
                               spec: TreeSpec, gen=None):
     """Generate with tree speculation; mirrors ``speculative_generate``.
