@@ -94,11 +94,14 @@ Phases, each printing one JSON line:
      float32: 4 requests of different lengths through 2 slots, chain and
      tree, must give the static chain and tree generation's tokens with fp
      KV, int8 KV and int8 weights on both models; the prefix cache on and
-     off must give the same tokens;
+     off must give the same tokens, and so must every observability hook
+     on (fenced phases included) and off, chain and tree;
  18. the serving CLI's --continuous branch at full width in subprocesses
      (16 chat-mix requests): tree with the prefix cache, int8 weights on
-     both models and int8 KV, then chain in bf16; each must serve all 16
-     requests, its printed kernel launches checked;
+     both models and int8 KV and every observability flag (its trace,
+     metrics, flight bundles, torch.profiler trace and printed reports
+     checked), then chain in bf16; each must serve all 16 requests, its
+     printed kernel launches checked (44 tree_attention launches a round);
  19. self-speculative serving with draft heads on phase 3's target (after
      phase 16, no drafter model): an EAGLE head (one block with 32 heads,
      d_ff 16384, 302.0M parameters) and Medusa heads (K 4, 67.1M) from
@@ -120,12 +123,29 @@ Phases, each printing one JSON line:
      tree; then the training CLI (--reduced --draft-head eagle --save), the
      serving CLI from that checkpoint by tree, and the --continuous --tree
      --draft-head eagle serving CLI at full width on the chat mix, in
-     subprocesses, their printed launches checked.
+     subprocesses, their printed launches checked;
+ 22. observability of the continuous engine at full width (after phase 19,
+     on phase 3's models): phase 16's stream by tree (2, 2) with the
+     prefix cache at temperature 0.7 in three passes: (a) every hook off,
+     (b) tracer, metrics registry with JSONL snapshots, quality telemetry,
+     flight recorder and an SLO of TTFT 1 ms that must breach, (c) (b)
+     with the fenced draft/verify/commit/prefill phases inside
+     torch_profile; each must finish all 16 requests with 44
+     tree_attention launches a round; the trace must rebuild every TTFT
+     within 1 ms, the registry count every committed token, the JSONL,
+     Prometheus and breach bundle parse, the phase split sum to the step
+     time; a round at 8 decode rows must make one device-to-host copy with
+     quality on; prints the hook cost ((a) against (b): tau, tok/s, host
+     and device ms per round), (c)'s phase split with each phase's device
+     span (CUDA events) and busy time (the profiler's kernels), the
+     roofline attribution at 3350 GB/s, the quality summary and the
+     acceptance report.
 Phases 10, 11, 13-15, 18 and 21 run before phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
 non-zero exit code and no result line.
 """
+import bisect
 import contextlib
 import dataclasses
 import json
@@ -135,6 +155,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -501,8 +522,12 @@ def kernel_breakdown(prof, rounds, wall_ms_per_round):
     def share(pred):
         return sum(e.self_device_time_total for e in kernels if pred(e.key)) / total_us
 
+    # device-to-host copies (the device-side memcpy records, whatever
+    # device type the profiler files them under)
+    dtoh = sum(e.count for e in prof.key_averages() if "Memcpy DtoH" in e.key)
     return {"profiled_rounds": rounds,
             "device_ms_per_round": per_round_ms,
+            "dtoh_copies_per_round": dtoh / rounds,
             "wall_ms_per_round_unprofiled": wall_ms_per_round,
             "device_busy_share": per_round_ms / wall_ms_per_round,
             "share_tree_attention": share(lambda k: "tree_attention" in k),
@@ -1828,15 +1853,19 @@ def tree_launches_per_round(target, draft, spec):
     return n
 
 
-def continuous_pass(models, sdc, spec, prefix, kv_quant, rate=CONT_RATE):
+def continuous_pass(models, sdc, spec, prefix, kv_quant, rate=CONT_RATE,
+                    profile_dir=None, **engine_kw):
     """One measured pass over the 16-request chat stream arriving at
     ``rate`` requests/s (0: all at t = 0, the engine's own throughput),
     launch counts set to 0 just before it and read just after. ``models``'
     drafter is a drafter model or a head drafter (whose engine must then
-    hold no drafter pool)."""
+    hold no drafter pool). ``engine_kw`` (observability hooks) go to the
+    measured pass's engine, which ``profile_dir`` wraps in
+    ``obs.torch_profile``. Returns (summary, engine)."""
     from repro_torch.draftheads import is_head_drafter
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.obs import torch_profile
     target, t_params, draft, d_params, c = models
     V = target.cfg.vocab_size
     # warm-up on two other requests, not counted
@@ -1847,10 +1876,11 @@ def continuous_pass(models, sdc, spec, prefix, kv_quant, rate=CONT_RATE):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    engine, results = serve.serve_continuous(target, t_params, draft, d_params,
-                                             reqs, sdc, spec, prefix_cache=prefix,
-                                             kv_quant=kv_quant, **CONT_ENGINE)
-    torch.cuda.synchronize()
+    with torch_profile(profile_dir):
+        engine, results = serve.serve_continuous(
+            target, t_params, draft, d_params, reqs, sdc, spec,
+            prefix_cache=prefix, kv_quant=kv_quant, **CONT_ENGINE, **engine_kw)
+        torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     check_served(results, reqs, V)
     depth = spec.depth if spec is not None else sdc.gamma
@@ -1871,15 +1901,16 @@ def continuous_pass(models, sdc, spec, prefix, kv_quant, rate=CONT_RATE):
                    num_pages=engine.num_pages, view_slots=engine.pool.max_pages_per_seq
                    * engine.page_size,
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return summary
+    return summary, engine
 
 
-def profile_continuous(models, sdc, spec, rounds=4):
+def profile_continuous(models, sdc, spec, rounds=4, **engine_kw):
     """Where a continuous decode round's time goes with all 8 slots in
     decode: 8 chat-mix requests (max_new raised to 96 so that no row
     retires in the window) admitted at t = 0 and prefilled, then ``rounds``
     engine steps (each one decode round) on the host clock, synchronised,
-    and ``rounds`` more under torch.profiler."""
+    and ``rounds`` more under torch.profiler. ``engine_kw``: observability
+    hooks of the engine."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -1891,7 +1922,8 @@ def profile_continuous(models, sdc, spec, rounds=4):
     engine = ContinuousEngine(target=target, target_params=t_params, sd=sdc,
                               tree=spec,
                               max_seq_len=max(len(r.prompt) + 96 for r in reqs),
-                              **serve.drafter_kw(draft, d_params), **CONT_ENGINE)
+                              **serve.drafter_kw(draft, d_params), **CONT_ENGINE,
+                              **engine_kw)
     for r in reqs:
         engine.submit(r)
     while any(s.state != "decode" for s in engine._slots):
@@ -1935,7 +1967,8 @@ def phase16_continuous_serving(models, smi):
              spec, True, CONT_RATE),
             ("tree_rate0", SDConfig(gamma=3, temperature=0.7), spec, True, 0.0),
             ("chain_rate0", SDConfig(gamma=3, temperature=0.7), None, False, 0.0)):
-        out[name] = continuous_pass(models, sdc, tree, prefix, sdc.kv_quant, rate)
+        out[name], _ = continuous_pass(models, sdc, tree, prefix, sdc.kv_quant,
+                                       rate)
     out["tree"]["where_the_time_goes"] = profile_continuous(
         models, SDConfig(gamma=3, temperature=0.7), spec)
     emit({"phase": 16, "mix": CONT_MIX, "requests": CONT_N,
@@ -2012,6 +2045,17 @@ def phase17_continuous_greedy_exactness():
                   for name, got in (("static_tree", static_tree),
                                     ("continuous_chain", chain),
                                     ("continuous_tree", tree))}
+            if label == "fp_weights_fp_kv":
+                # every observability hook on, fenced phases included: the
+                # same tokens as with none, chain and tree
+                with tempfile.TemporaryDirectory() as tmp:
+                    for name, tspec_, plain in (("chain", None, chain),
+                                                ("tree", spec, tree)):
+                        hooked, _ = continuous(
+                            target, t_params, draft, d_params, sdc, tspec_,
+                            reqs, **obs_engine_kw(tmp, name, True))
+                        ok[f"hooks_on_equals_off_{name}"] = all(
+                            np.array_equal(hooked[i], plain[i]) for i in plain)
             out[label] = ok
             emit({"phase": 17, "config": label, "equals_static_chain": ok})
             assert all(ok.values()), (label, ok)
@@ -2044,41 +2088,102 @@ def phase17_continuous_greedy_exactness():
 CONT_LINE = re.compile(r"^continuous: (\d+) requests, (\d+) tokens", re.M)
 
 
+OBS_REPORT_LINES = ("quality over", "accept-vs-entropy:", "tenant chat:",
+                    "acceptance attribution over", "slo: ttft<1ms",
+                    "flight recorder:", "phase time over",
+                    "phase device span (CUDA events):",
+                    "roofline-vs-measured over", "MBU", "metrics:", "trace:",
+                    "torch.profiler trace:")
+
+
+def obs_cli_flags(d):
+    """Every observability flag of the serving CLI, its files under d."""
+    return ["--trace-out", str(d / "trace.json"),
+            "--metrics-out", str(d / "metrics.jsonl"), "--time-phases",
+            "--peak-gbps", str(HBM_BYTES_PER_S / 1e9), "--quality-telemetry",
+            "--flight-record", str(d / "flight"),
+            "--slo-ttft-ms", str(OBS_SLO["ttft_ms"]),
+            "--slo-tpot-ms", str(OBS_SLO["tpot_ms"]),
+            "--torch-profile", str(d / "torch_profile")]
+
+
+def check_obs_cli(d, stdout):
+    """The files an every-flag CLI run wrote, and its report lines."""
+    from repro_torch.obs.phases import TRACE_FILE
+    missing = [line for line in OBS_REPORT_LINES if line not in stdout]
+    assert not missing, missing
+    names = {e["name"] for e in
+             json.loads((d / "trace.json").read_text())["traceEvents"]}
+    assert OBS_SPANS <= names, OBS_SPANS - names
+    snaps = [json.loads(ln) for ln in
+             (d / "metrics.jsonl").read_text().splitlines()]
+    assert snaps[-1]["metrics"]["serve_completed_total"] == CONT_N
+    prom = (d / "metrics.jsonl.prom").read_text()
+    assert "sd_pooled_tokens_total" in prom and "quality_rounds_total" in prom
+    bundles = sorted((d / "flight").glob("flight_*_slo_breach.json"))
+    assert bundles and json.loads(bundles[0].read_text())["reason"] == "slo_breach"
+    prof = d / "torch_profile" / TRACE_FILE
+    assert prof.stat().st_size > 0
+    return {"trace_spans": sorted(names), "jsonl_snapshots": len(snaps),
+            "slo_breach_bundles": len(bundles),
+            "torch_trace_mb": prof.stat().st_size / 1e6,
+            "report": [ln for ln in stdout.splitlines()
+                       if any(k in ln for k in OBS_REPORT_LINES)]}
+
+
 def phase18_continuous_cli(smi):
     """The full-width pair through the serving CLI's --continuous branch in
     subprocesses, on the chat mix (16 requests at 4/s, temperature 0.7):
     tree with the prefix cache, int8 weights on both models and int8 KV
-    pools; then chain in bf16. Each must exit 0 having served 16 requests,
-    with its printed kernel launches: tree attention and the int8 matmul
-    for the first, no kernel for the chain."""
+    pools, with every observability flag; then chain in bf16. Each must
+    exit 0 having served 16 requests, with its printed kernel launches:
+    tree attention (44 a round) and the int8 matmul for the first, no
+    kernel for the chain; the first's files and reports are checked."""
     base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
             "llama2-7b-chat", "--continuous", "--traffic-mix", CONT_MIX,
             "--requests", str(CONT_N), "--arrival-rate", str(CONT_RATE),
             "--temperature", "0.7"]
     runs = {}
-    for name, extra, used in (
-            ("tree_int8", ["--tree", "--prefix-cache", "--quant-weights", "int8",
-                           "--quant-target", "--quant-kv"],
-             {"tree_attention", "quant_matmul_int8"}),
-            ("chain_bf16", [], set())):
-        t0 = time.perf_counter()
-        proc = subprocess.run(base + extra, capture_output=True, text=True,
-                              timeout=600, cwd=ROOT,
-                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        found, served = LAUNCH_LINE.search(proc.stdout), CONT_LINE.search(proc.stdout)
-        run = runs[name] = {
-            "cmd": " ".join(base[1:] + extra), "rc": proc.returncode,
-            "s": time.perf_counter() - t0,
-            "launches": json.loads(found[1]) if found else None,
-            "requests": int(served[1]) if served else None,
-            "stdout": proc.stdout.strip().splitlines()[-10:],
-            "stderr": proc.stderr.strip().splitlines()[-3:]}
-        ok = (proc.returncode == 0 and run["launches"] is not None
-              and run["requests"] == CONT_N
-              and all((n > 0) == (k in used) for k, n in run["launches"].items()))
-        if not ok:
-            emit({"phase": 18, "runs": runs, "nvidia_smi": smi})
-            raise AssertionError(f"continuous CLI run {name} failed: {run}")
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        for name, extra, used in (
+                ("tree_int8", ["--tree", "--prefix-cache", "--quant-weights",
+                               "int8", "--quant-target", "--quant-kv",
+                               *obs_cli_flags(d)],
+                 {"tree_attention", "quant_matmul_int8"}),
+                ("chain_bf16", [], set())):
+            t0 = time.perf_counter()
+            proc = subprocess.run(base + extra, capture_output=True, text=True,
+                                  timeout=600, cwd=ROOT,
+                                  env={**os.environ,
+                                       "PYTHONPATH": str(ROOT / "src")})
+            found = LAUNCH_LINE.search(proc.stdout)
+            served, rounds = CONT_LINE.search(proc.stdout), ROUNDS_FIELD.search(
+                proc.stdout)
+            run = runs[name] = {
+                "cmd": " ".join(base[1:] + extra), "rc": proc.returncode,
+                "s": time.perf_counter() - t0,
+                "launches": json.loads(found[1]) if found else None,
+                "requests": int(served[1]) if served else None,
+                "rounds": int(rounds[1]) if rounds else None,
+                "stdout": proc.stdout.strip().splitlines()[-10:],
+                "stderr": proc.stderr.strip().splitlines()[-3:]}
+            ok = (proc.returncode == 0 and run["launches"] is not None
+                  and run["requests"] == CONT_N
+                  and all((n > 0) == (k in used)
+                          for k, n in run["launches"].items()))
+            if ok and "tree_attention" in used:
+                ok = run["rounds"] is not None and (
+                    run["launches"]["tree_attention"] == 44 * run["rounds"])
+            if ok and name == "tree_int8":
+                try:
+                    run["observability"] = check_obs_cli(d, proc.stdout)
+                except (AssertionError, OSError, ValueError, KeyError) as e:
+                    run["observability"] = f"{type(e).__name__}: {e}"
+                    ok = False
+            if not ok:
+                emit({"phase": 18, "runs": runs, "nvidia_smi": smi})
+                raise AssertionError(f"continuous CLI run {name} failed: {run}")
     emit({"phase": 18, "runs": runs, "nvidia_smi": smi})
 
 
@@ -2191,7 +2296,7 @@ def phase19_head_serving(models, smi):
                                            spec)
     eagle, ehp = heads["eagle"]
     hmodels = (target, t_params, eagle, ehp, out["eagle"]["c"])
-    cont = continuous_pass(hmodels, sdc, spec, prefix=True, kv_quant=False)
+    cont, _ = continuous_pass(hmodels, sdc, spec, prefix=True, kv_quant=False)
     tree_launches["continuous_tree_eagle"] = cont["launches"]["tree_attention"]
     cont["where_the_time_goes"] = profile_continuous(hmodels, sdc, spec)
     out["continuous_eagle_tree"] = cont
@@ -2432,6 +2537,200 @@ def head_clis():
     return out
 
 
+# ------------------------------------------------ observability (22)
+
+OBS_SLO = dict(ttft_ms=1.0, tpot_ms=1000.0)   # TTFT must breach, TPOT not
+OBS_SPANS = {"request", "admit", "first_token", "decode_round", "draft",
+             "verify", "commit", "queue_depth"}
+
+
+def obs_engine_kw(tmp, label, phases):
+    """Every observability hook of ``ContinuousEngine``, fences
+    (``time_phases``) only with ``phases``; its files under tmp/label."""
+    from repro_torch.obs import MetricsRegistry, SLOConfig, Tracer
+    d = Path(tmp) / label
+    d.mkdir(parents=True, exist_ok=True)
+    return dict(tracer=Tracer(), registry=MetricsRegistry(),
+                metrics_out=str(d / "metrics.jsonl"), quality=True,
+                flight_record=True, flight_dir=str(d / "flight"),
+                slo=SLOConfig(**OBS_SLO), time_phases=phases)
+
+
+def check_obs_files(engine, out_dir, spans):
+    """An instrumented engine's outputs after a run: the trace parses, holds
+    ``spans`` and rebuilds every request's TTFT within 1 ms; the registry
+    counts every committed token; the JSONL snapshots and the Prometheus
+    text parse; an slo_breach bundle exists and parses. Returns sizes and
+    counts for the phase's line."""
+    out_dir = Path(out_dir)
+    trace_path = out_dir / "trace.json"
+    engine.tracer.write(str(trace_path))
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    names = {e["name"] for e in events}
+    assert spans <= names, spans - names
+    begin = {e["id"]: e["ts"] for e in events if e["ph"] == "b"}
+    first = {e["id"]: e["ts"] for e in events
+             if e["ph"] == "n" and e["name"] == "first_token"}
+    assert set(begin) == set(first) == set(engine.stats), (begin, first)
+    ttft_err = max(abs((first[r] - begin[r]) / 1e6 - s.ttft_s)
+                   for r, s in engine.stats.items())
+    assert ttft_err < 1e-3, ttft_err
+    reg = engine.registry
+    committed = sum(s.sd.total_tokens for s in engine.stats.values())
+    blocks = sum(s.sd.num_blocks for s in engine.stats.values())
+    assert reg.counter("sd_tokens_total").value == committed, committed
+    assert reg.counter("sd_blocks_total").value == blocks, blocks
+    assert reg.histogram("sd_accepted_per_round").count == blocks
+    snaps = [json.loads(ln) for ln in
+             Path(engine.metrics_out).read_text().splitlines()]
+    assert snaps and snaps[-1]["metrics"]["serve_completed_total"] == CONT_N
+    prom = reg.to_prometheus()
+    (out_dir / "metrics.prom").write_text(prom)
+    for line in prom.splitlines():
+        if not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            float(value)
+            assert re.fullmatch(r'[a-zA-Z_:][a-zA-Z0-9_:]*(\{le="[^"]+"\})?',
+                                name), line
+    bundles = sorted(Path(engine.flight_dir).glob("flight_*_slo_breach.json"))
+    assert bundles, "no slo_breach bundle"
+    bundle = json.loads(bundles[0].read_text())
+    assert bundle["reason"] == "slo_breach" and "ttft" in bundle["context"]["metrics"]
+    return {"trace_events": len(events), "ttft_max_err_ms": ttft_err * 1e3,
+            "sd_tokens_total": committed,
+            "tokens_streamed": sum(s.new_tokens for s in engine.stats.values()),
+            "jsonl_snapshots": len(snaps), "prom_lines": len(prom.splitlines()),
+            "slo_breach_bundles": len(bundles),
+            "flight_bundles": len(engine.recorder.dumped_paths),
+            "slo": engine.slo_tracker.snapshot()}
+
+
+def phase_busy_ms(trace_path):
+    """Device busy ms inside each fenced phase of a torch.profiler trace:
+    the kernels, copies and fills that start and end within the phase's
+    ``phase_<name>`` CPU range (each phase waits for its device work before
+    the range closes), and the trace's device-to-host copies."""
+    doc = json.loads(Path(trace_path).read_text())
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    ranges = [(e["name"][len("phase_"):], e["ts"], e["ts"] + e["dur"])
+              for e in events if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("phase_")]
+    device = sorted((e["ts"], e["ts"] + e.get("dur", 0.0)) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    starts = [s for s, _ in device]
+    busy = {}
+    for name, lo, hi in ranges:
+        i = bisect.bisect_left(starts, lo)
+        us = 0.0
+        while i < len(device) and device[i][0] <= hi:
+            if device[i][1] <= hi:
+                us += device[i][1] - device[i][0]
+            i += 1
+        busy[name] = busy.get(name, 0.0) + us / 1e3
+    dtoh = sum(1 for e in events if e.get("cat") == "gpu_memcpy"
+               and "DtoH" in e.get("name", ""))
+    return busy, dtoh, len(events)
+
+
+def phase22_observability(models, smi):
+    """The continuous engine's observability at full width on phase 16's
+    stream (tree (2, 2), prefix cache, temperature 0.7) in three passes:
+    (a) every hook off; (b) tracer, registry with JSONL snapshots, quality
+    telemetry, flight recorder and an SLO of TTFT 1 ms that must breach;
+    (c) (b) with the fenced phases, inside torch_profile. Each pass must
+    finish all 16 requests with 44 tree_attention launches a round; (b)'s
+    engine must make one device-to-host copy per decode round (profiled
+    windows of 8 decode rows); the trace, metrics, bundles and phase split
+    are checked; the hook cost is (a) against (b) in this call (the passes,
+    and windows in turns a, b, b, a)."""
+    from repro_torch.core.speculative import SDConfig
+    from repro_torch.obs import (acceptance_report, attribution_report,
+                                 format_acceptance_report, format_attribution)
+    from repro_torch.obs.phases import TRACE_FILE
+    from repro_torch.spectree.tree import TreeSpec
+    assert os.environ.get("PYTHONHASHSEED") == "0"   # the chat mix's preamble
+    target, draft = models[0], models[2]
+    spec, sdc = TreeSpec((2, 2)), SDConfig(gamma=3, temperature=0.7)
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out["a_hooks_off"], _ = continuous_pass(models, sdc, spec, True, False)
+        out["b_hooks_on"], eng_b = continuous_pass(
+            models, sdc, spec, True, False, **obs_engine_kw(tmp, "b", False))
+        out["b_hooks_on"]["files"] = check_obs_files(
+            eng_b, tmp / "b", OBS_SPANS - {"draft", "verify", "commit"})
+        prof_dir = tmp / "c" / "torch_profile"
+        out["c_phased_profiled"], eng_c = continuous_pass(
+            models, sdc, spec, True, False, profile_dir=str(prof_dir),
+            **obs_engine_kw(tmp, "c", True))
+        out["c_phased_profiled"]["files"] = check_obs_files(eng_c, tmp / "c",
+                                                            OBS_SPANS)
+        prof_trace = prof_dir / TRACE_FILE
+        assert prof_trace.stat().st_size > 0, prof_trace
+        busy, dtoh_c, n_events = phase_busy_ms(prof_trace)
+        # the cost of the hooks on a round at 8 active rows: (a) and (b) in
+        # this call, in turns a, b, b, a, each window its own engine
+        windows = {"a_hooks_off": [], "b_hooks_on": []}
+        for i, name in enumerate(("a_hooks_off", "b_hooks_on", "b_hooks_on",
+                                  "a_hooks_off")):
+            kw = obs_engine_kw(tmp, f"w{i}", False) if name[0] == "b" else {}
+            windows[name].append(profile_continuous(models, sdc, spec, **kw))
+        assert all(w["dtoh_copies_per_round"] == 1.0
+                   for w in windows["b_hooks_on"]), windows
+        timer = eng_c.phases
+        bd = timer.breakdown()
+        assert timer.total_s > 0 and {"draft", "verify", "commit", "prefill"} <= set(bd)
+        assert abs(sum(bd.values()) - timer.total_s) <= 1e-6 * timer.total_s, bd
+        rounds = eng_c.telemetry.decode_rounds
+        assert timer.counts["verify"] == rounds
+        assert set(eng_c.phase_device_ms) == {"draft", "verify", "commit", "prefill"}
+        att = attribution_report(
+            timer, target.cfg, draft.cfg,
+            batch=max(int(round(eng_c.telemetry.mean_active_rows)), 1),
+            ctx=eng_c.max_seq_len // 2, gamma=spec.depth, weights="bfloat16",
+            kv="bfloat16", peak_gbps=HBM_BYTES_PER_S / 1e9)
+        q = eng_b.quality_stats
+        assert q.rounds == eng_b.telemetry.decode_rounds and q.attempted.sum() > 0
+        n_phase = {k: timer.counts.get(k, 0) for k in bd if k != "host"}
+        out["c_phased_profiled"]["phases"] = {
+            "steps": timer.steps, "total_s": timer.total_s,
+            "breakdown_s": bd, "fractions": timer.fractions(),
+            "counts": n_phase,
+            "wall_ms_per_call": {k: bd[k] * 1e3 / n for k, n in n_phase.items() if n},
+            "device_span_ms_per_call": {
+                k: v / n_phase[k] for k, v in eng_c.phase_device_ms.items()},
+            "device_busy_ms_per_call": {
+                k: v / n_phase[k] for k, v in busy.items() if n_phase.get(k)},
+            "summary": timer.summary(),
+            "attribution": att, "attribution_text": format_attribution(att)}
+        out["c_phased_profiled"]["torch_profile"] = {
+            "trace_mb": prof_trace.stat().st_size / 1e6, "events": n_events,
+            "dtoh_copies": dtoh_c,
+            "dtoh_per_round_and_first_token": dtoh_c / (rounds + CONT_N)}
+        out["quality"] = {
+            "summary": q.summary(), "snapshot": q.snapshot(),
+            "accept_vs_entropy": q.acceptance_entropy_curve(),
+            "tenants": {k: v.snapshot() for k, v in eng_b.tenant_quality.items()},
+            "acceptance_report": format_acceptance_report(
+                acceptance_report(q, spec.depth))}
+    out["windows"] = windows
+    out["hook_cost"] = {   # (a), (b); the windows in the order run
+        "tok_s": [out[k]["tok_s"] for k in ("a_hooks_off", "b_hooks_on")],
+        "tau": [out[k]["tau"] for k in ("a_hooks_off", "b_hooks_on")],
+        "host_ms_per_round": {k: [w["wall_ms_per_round_unprofiled"] for w in v]
+                              for k, v in windows.items()},
+        "device_ms_per_round": {k: [w.get("device_ms_per_round") for w in v]
+                                for k, v in windows.items()},
+        "dtoh_copies_per_round": {k: [w["dtoh_copies_per_round"] for w in v]
+                                  for k, v in windows.items()}}
+    emit({"phase": 22, "mix": CONT_MIX, "requests": CONT_N,
+          "arrival_rate": CONT_RATE, "engine": CONT_ENGINE, "temperature": 0.7,
+          "tree": spec.branching, "slo": OBS_SLO, "passes": out,
+          "wall_s": time.perf_counter() - t0, "nvidia_smi": smi})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2460,6 +2759,7 @@ def main():
     timings.update(fd_timing)
     continuous = phase16_continuous_serving(models, smi)
     head_launches = phase19_head_serving(models, smi)
+    phase22_observability(models, smi)
     del models
     torch.cuda.empty_cache()
     phase5_greedy_exactness()

@@ -5,6 +5,7 @@ block efficiency tau : mean tokens committed per target-model run
 MBSU                 : memory-bound speed-up for relative draft cost
                        c = n_draft_params / n_target_params:
                        MBSU = tau / (c * gamma + 1).
+token-rate ratio     : measured SD tokens/sec over autoregressive tokens/sec.
 """
 from __future__ import annotations
 
@@ -15,8 +16,16 @@ from typing import Deque, Dict, Optional
 import numpy as np
 
 
+def block_efficiency(total_tokens: float, num_blocks: float) -> float:
+    return total_tokens / max(num_blocks, 1.0)
+
+
 def mbsu(tau: float, c: float, gamma: int) -> float:
     return tau / (c * gamma + 1.0)
+
+
+def token_rate_ratio(sd_tokens_per_s: float, ar_tokens_per_s: float) -> float:
+    return sd_tokens_per_s / max(ar_tokens_per_s, 1e-12)
 
 
 @dataclass
@@ -72,10 +81,28 @@ class SDStats:
 
     @property
     def tau(self) -> float:
-        return self.total_tokens / max(self.num_blocks, 1)
+        return block_efficiency(self.total_tokens, self.num_blocks)
+
+    def mbsu(self, c: float, gamma: int) -> float:
+        return mbsu(self.tau, c, gamma)
 
     def tokens_per_s(self) -> float:
         return self.total_tokens / max(self.wall_time_s, 1e-9)
+
+    def emit(self, registry, prefix: str = "sd"):
+        """Publish the accumulated counters into a metrics registry
+        (obs.registry) as monotonic totals — the stats object stays the
+        source of truth; the registry is the exposition surface."""
+        registry.counter(f"{prefix}_tokens_total",
+                         "committed tokens").set_total(self.total_tokens)
+        registry.counter(f"{prefix}_blocks_total",
+                         "speculation rounds").set_total(self.num_blocks)
+        registry.gauge(f"{prefix}_tau", "block efficiency").set(
+            self.tau if self.num_blocks else 0.0)
+        for h, c in sorted(self.accept_hist.items()):
+            registry.counter(f"{prefix}_blocks_committed_{h}_total",
+                             f"rounds committing exactly {h} tokens"
+                             ).set_total(c)
 
 
 # --------------------------------------------------------- serving telemetry
@@ -124,6 +151,9 @@ class RequestStats:
     new_tokens: int = 0
     prefix_hit_tokens: int = 0
     sd: SDStats = field(default_factory=SDStats)
+    # obs.quality.QualityStats when the engine runs with quality telemetry
+    # on (kept as object: core does not import obs)
+    quality: Optional[object] = None
 
     @property
     def ttft_s(self) -> float:
@@ -154,10 +184,10 @@ class ServingTelemetry:
     aggregates over EVERY sample ever taken, so nothing the serve summary
     reports degrades when the ring wraps.
 
-    With a ``registry`` attached (a metrics registry with ``counter`` and
-    ``gauge`` factories) every sample also updates live gauges/counters. The
-    port has no registry yet (observability is a later slice), so the
-    continuous engine leaves it None and ``emit`` does nothing.
+    With a ``registry`` attached (obs.registry; the continuous engine passes
+    its own) every sample also updates live gauges/counters, making the
+    telemetry an *emitter* onto the shared metrics surface instead of a
+    parallel store that needs scraping.
     """
 
     window: int = 1024
@@ -202,10 +232,7 @@ class ServingTelemetry:
             self.emit(r)
 
     def emit(self, registry):
-        """Publish the monotonic counters (steps/rounds/chunks/admissions);
-        a no-op without a registry."""
-        if registry is None:
-            return
+        """Publish the monotonic counters (steps/rounds/chunks/admissions)."""
         for name, help_, v in (
                 ("serve_steps_total", "engine iterations", self.steps),
                 ("serve_decode_rounds_total", "speculative rounds",
@@ -265,10 +292,8 @@ class PrefixCacheTelemetry:
                 f"evictions={self.evictions} cow_copies={self.cow_copies}")
 
     def emit(self, registry):
-        """Publish prefix-cache counters into a metrics registry as
-        monotonic totals; a no-op without a registry."""
-        if registry is None:
-            return
+        """Publish prefix-cache counters into a metrics registry
+        (obs.registry) as monotonic totals."""
         for name, help_, v in (
                 ("prefix_lookups_total", "admitted-request probes",
                  self.lookups),

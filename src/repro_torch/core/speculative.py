@@ -35,6 +35,11 @@ Randomness comes from one ``torch.Generator``. A round may instead take a
 ``noise`` dict holding the exact draws the reference makes from its round
 key: {"draft": (gamma, B, V) Gumbel, "u": (gamma, B) uniforms,
 "residual": (B, V) Gumbel}.
+
+With ``SDConfig.quality`` the commit phase also writes ``state["qual"]``
+(``quality_buffer``): per-draft-depth TVD, target entropy and accept and
+drafted masks, pure functions of the round's distributions that draw
+nothing from the generator, so the tokens are the same with it on or off.
 """
 from __future__ import annotations
 
@@ -133,6 +138,39 @@ class SDConfig:
     # int8 KV caches for both models (quant.kvcache): the prefill caches are
     # converted once, decode writes quantized entries directly
     kv_quant: bool = False
+    # quality telemetry (obs.quality): the commit phase also writes
+    # ``state["qual"]``, which the continuous engine fetches in its one
+    # per-round device-to-host copy
+    quality: bool = False
+
+
+def init_quality_buffer(batch: int, depth: int, device="cpu"):
+    """Zeroed ``state["qual"]``: the round's output replaces it. ``depth``
+    is gamma for chain rounds, the tree depth for tree rounds."""
+    def zeros(dtype):
+        return torch.zeros((batch, depth), dtype=dtype, device=device)
+    return {"tvd": zeros(torch.float32), "ent": zeros(torch.float32),
+            "acc": zeros(torch.bool), "drafted": zeros(torch.bool)}
+
+
+def quality_buffer(p_sel, q_sel, n_acc, drafted=None):
+    """Per-depth quality accumulators from the round's own distributions.
+
+    p_sel/q_sel: (K, B, V) draft/target distributions along the speculated
+    chain (or accepted tree path); n_acc: (B,). ``drafted`` marks positions
+    whose distributions are genuine drafts (chain: all K; tree: only depths
+    at or before the stop, since deeper path entries repeat the stop node).
+    Returns {"tvd", "ent": (B, K) float32, "acc", "drafted": (B, K) bool}.
+    """
+    K, B = p_sel.shape[0], p_sel.shape[1]
+    tvd = 0.5 * (p_sel - q_sel).abs().sum(-1).T                     # (B, K)
+    ent = -torch.where(q_sel > 0, q_sel * torch.log(q_sel.clamp(min=1e-30)),
+                       0.0).sum(-1).T                                 # (B, K)
+    acc = torch.arange(K, device=n_acc.device)[None] < n_acc[:, None]
+    if drafted is None:
+        drafted = torch.ones((B, K), dtype=torch.bool, device=n_acc.device)
+    return {"tvd": tvd.float().contiguous(), "ent": ent.float().contiguous(),
+            "acc": acc, "drafted": drafted}
 
 
 def _pick(noise, name, i=None):
@@ -248,6 +286,10 @@ def sd_commit_phase(sdc: SDConfig, state, draft_out, verify_out, gen,
     new_state = {"tokens": tokens, "lengths": lengths + n_acc + 1,
                  "pending": new_pending,
                  "t_cache": rewind_cache(state, verify_out["t_cache"], limit)}
+    if sdc.quality:
+        # every chain position is a genuine draft: the drafted mask is all
+        # ones
+        new_state["qual"] = quality_buffer(p_stack[:g], q_stack[:g], n_acc)
     if "t_hid" in verify_out:
         # the feature at the last committed position L + n_acc: verify
         # slot j sits at position L + j
@@ -329,10 +371,12 @@ def speculative_generate(draft, target: Model, d_params, t_params,
     still active."""
     if gen is None:
         gen = torch.Generator(device=prompt.device).manual_seed(0)
-    S = prompt.shape[1]
+    B, S = prompt.shape
     max_total = S + max_new_tokens + sdc.gamma + 2
     state = _prefill_state(draft, target, d_params, t_params, prompt,
                            max_total, sdc, gen)
+    if sdc.quality:
+        state["qual"] = init_quality_buffer(B, sdc.gamma, prompt.device)
 
     def round_fn(st):
         return sd_round(draft, target, sdc, d_params, t_params, st, gen)

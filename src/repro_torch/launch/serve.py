@@ -43,6 +43,22 @@ by rejection sampling, only with lower acceptance):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b-chat \
       --draft-head eagle --tree --temperature 0.7 [--head-ckpt heads.npz]
 
+Observability of the continuous engine (``obs``; each flag needs
+``--continuous``): ``--trace-out`` writes a Chrome/Perfetto trace of the
+engine's spans and per-request tracks, ``--metrics-out`` JSONL registry
+snapshots and a Prometheus file beside them, ``--time-phases`` the fenced
+draft/verify/commit/host split and the roofline-vs-measured report (at
+``--peak-gbps``), ``--quality-telemetry`` per-depth TVD and acceptance
+with drift detection, ``--flight-record`` post-mortem bundles,
+``--slo-ttft-ms``/``--slo-tpot-ms`` burn-rate SLO tracking, and
+``--torch-profile DIR`` a torch.profiler trace of the serve loop:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b-chat \
+      --reduced --device cpu --continuous --tree --temperature 0.7 \
+      --trace-out t.json --metrics-out m.jsonl --time-phases \
+      --quality-telemetry --flight-record fr --slo-ttft-ms 500 \
+      --slo-tpot-ms 100
+
 Weights are random, drawn from fixed seeds (target 0, drafter 1); a model to
 be quantized is drawn in float32, as the reference's parameters are, and its
 unquantized leaves are then cast to the compute dtype. ``--reduced`` serves
@@ -64,6 +80,9 @@ from ..core.speculative import SDConfig
 from ..draftheads import HeadConfig, HeadDrafter, is_head_drafter
 from ..kernels import ops
 from ..models.model import Model
+from ..obs import (MetricsRegistry, SLOConfig, Tracer, acceptance_report,
+                   attribution_report, format_acceptance_report,
+                   format_attribution, torch_profile)
 from ..quant import cast_unquantized, params_nbytes, quantize_params
 from ..serving.continuous import ContinuousEngine
 from ..serving.engine import Request, ServingEngine
@@ -287,6 +306,70 @@ def print_continuous(engine, summary: dict):
     print(f"  tokens-per-round histogram: {hist or 'none'}")
 
 
+def print_observability(engine, results, depth: int, drafter_cfg,
+                        args) -> None:
+    """The reference CLI's observability reports of a continuous run:
+    quality summary, accept-vs-entropy curve, per-tenant lines, acceptance
+    report, SLO summary, flight recorder, phase split and roofline
+    attribution (with the per-phase device ms on the card), then the
+    metrics and trace files."""
+    if engine.quality_stats is not None:
+        q = engine.quality_stats
+        print("  " + q.summary().replace("\n", "\n  "))
+        curve = " ".join(
+            f"H<={hi:g}:{rate:.2f}(tvd {tv:.2f})" if np.isfinite(hi)
+            else f"H>4:{rate:.2f}(tvd {tv:.2f})"
+            for hi, _, rate, tv in q.acceptance_entropy_curve())
+        print(f"  accept-vs-entropy: {curve or 'none'}")
+        for tenant, ts in sorted(engine.tenant_quality.items()):
+            if tenant:
+                print(f"  tenant {tenant}: accept={ts.accept_rate:.3f} "
+                      f"mean_tvd={ts.mean_tvd:.3f} "
+                      f"alarms={ts.drift_alarms}")
+        print("  " + format_acceptance_report(
+            acceptance_report(q, depth)).replace("\n", "\n  "))
+    if engine.slo_tracker is not None:
+        print("  " + engine.slo_tracker.summary().replace("\n", "\n  "))
+    if engine.recorder is not None:
+        rc = engine.recorder
+        print(f"  flight recorder: {rc.rounds_seen} rounds ringed "
+              f"(cap {rc.capacity}), {len(rc.triggers)} triggers, "
+              f"{len(rc.dumped_paths)} bundles in {rc.out_dir}/")
+    if args.time_phases:
+        print(f"  {engine.phases.summary()}")
+        if engine.phase_device_ms:
+            dev = " ".join(f"{k}={v:.1f}ms"
+                           for k, v in engine.phase_device_ms.items())
+            print(f"  phase device span (CUDA events): {dev}")
+        rep = attribution_report(
+            engine.phases, engine.target.cfg, drafter_cfg,
+            batch=max(int(round(engine.telemetry.mean_active_rows)), 1),
+            ctx=engine.max_seq_len // 2, gamma=depth,
+            weights=args.quant_weights or engine.target.cfg.dtype,
+            kv="int8" if args.quant_kv else engine.target.cfg.dtype,
+            peak_gbps=args.peak_gbps)
+        print("  " + format_attribution(rep).replace("\n", "\n  "))
+    registry = engine.registry
+    if registry is not None:
+        pooled = SDStats()
+        for r in results:
+            pooled.merge(engine.stats[r.request_id].sd)
+        pooled.emit(registry, prefix="sd_pooled")
+    if args.metrics_out:
+        engine.finalize_metrics()
+        prom = args.metrics_out + ".prom"
+        with open(prom, "w") as f:
+            f.write(registry.to_prometheus())
+        print(f"  metrics: {args.metrics_out} (JSONL) + {prom} "
+              "(Prometheus exposition)")
+    if engine.tracer is not None:
+        engine.tracer.write(args.trace_out)
+        print(f"  trace: {args.trace_out} ({len(engine.tracer.events())} "
+              "events — load at https://ui.perfetto.dev)")
+    if args.torch_profile:
+        print(f"  torch.profiler trace: {args.torch_profile}/")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
@@ -341,7 +424,54 @@ def main(argv=None):
     ap.add_argument("--traffic-mix", choices=sorted(MIXES), default=None,
                     help="replay a traffic scenario mix instead of random "
                          "prompts (continuous only)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace-event JSON of the "
+                         "run (per-request lifecycle + engine spans)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="append periodic metrics-registry JSONL snapshots; "
+                         "final Prometheus exposition goes to PATH.prom")
+    ap.add_argument("--time-phases", action="store_true",
+                    help="fenced round phases: print the draft/verify/"
+                         "commit/host wall-time split and the "
+                         "roofline-vs-measured report (serializes host and "
+                         "card; measurement mode, not serving mode)")
+    ap.add_argument("--peak-gbps", type=float, default=None,
+                    help="peak memory bandwidth for the achieved-MBU "
+                         "estimate in the --time-phases report")
+    ap.add_argument("--torch-profile", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the serve loop "
+                         "into DIR (Chrome/Perfetto viewable)")
+    ap.add_argument("--quality-telemetry", action="store_true",
+                    help="per-depth TVD/entropy/acceptance analytics + "
+                         "drafter-drift detection (draws no random numbers; "
+                         "rides the round's one device-to-host copy)")
+    ap.add_argument("--flight-record", nargs="?", const="flight",
+                    default=None, metavar="DIR",
+                    help="bounded per-round flight recorder; dumps a JSON "
+                         "post-mortem bundle into DIR (default ./flight) on "
+                         "drift alarm, SLO breach, or crash")
+    ap.add_argument("--slo-ttft-ms", type=float, default=None,
+                    help="TTFT SLO threshold; arms multi-window burn-rate "
+                         "alerting (needs --slo-tpot-ms too)")
+    ap.add_argument("--slo-tpot-ms", type=float, default=None,
+                    help="TPOT SLO threshold; arms multi-window burn-rate "
+                         "alerting (needs --slo-ttft-ms too)")
     args = ap.parse_args(argv)
+    for flag, val in (("--trace-out", args.trace_out),
+                      ("--metrics-out", args.metrics_out),
+                      ("--time-phases", args.time_phases),
+                      ("--peak-gbps", args.peak_gbps),
+                      ("--torch-profile", args.torch_profile),
+                      ("--quality-telemetry", args.quality_telemetry),
+                      ("--flight-record", args.flight_record),
+                      ("--slo-ttft-ms", args.slo_ttft_ms),
+                      ("--slo-tpot-ms", args.slo_tpot_ms)):
+        if val and not args.continuous:
+            ap.error(f"{flag} instruments the continuous engine; add "
+                     "--continuous")
+    if (args.slo_ttft_ms is None) != (args.slo_tpot_ms is None):
+        ap.error("--slo-ttft-ms and --slo-tpot-ms come as a pair (burn "
+                 "rates are tracked per metric over the same windows)")
     for flag, val in (("--traffic-mix", args.traffic_mix),
                       ("--prefix-cache", args.prefix_cache),
                       ("--mixed-lens", args.mixed_lens)):
@@ -400,16 +530,30 @@ def main(argv=None):
                                    args.arrival_rate, args.mixed_lens,
                                    args.traffic_mix)
         ops.reset_launches()
-        engine, results = serve_continuous(
-            target, t_params, draft, d_params, reqs, sdc, spec,
-            max_batch=args.max_batch, page_size=args.page_size,
-            prefill_chunk=args.prefill_chunk, policy=args.policy,
-            aging_s=args.aging_s, kv_quant=args.quant_kv,
-            prefix_cache=args.prefix_cache)
+        with torch_profile(args.torch_profile):
+            engine, results = serve_continuous(
+                target, t_params, draft, d_params, reqs, sdc, spec,
+                max_batch=args.max_batch, page_size=args.page_size,
+                prefill_chunk=args.prefill_chunk, policy=args.policy,
+                aging_s=args.aging_s, kv_quant=args.quant_kv,
+                prefix_cache=args.prefix_cache,
+                tracer=Tracer() if args.trace_out else None,
+                registry=(MetricsRegistry()
+                          if args.metrics_out or args.time_phases else None),
+                time_phases=args.time_phases, metrics_out=args.metrics_out,
+                quality=args.quality_telemetry,
+                flight_record=args.flight_record is not None,
+                flight_dir=args.flight_record or "flight",
+                slo=(SLOConfig(ttft_ms=args.slo_ttft_ms,
+                               tpot_ms=args.slo_tpot_ms)
+                     if args.slo_ttft_ms is not None else None))
         launches = dict(ops.LAUNCHES)
-        summary = continuous_summary(engine, results, c,
-                                     spec.depth if spec else args.gamma)
+        depth = spec.depth if spec else args.gamma
+        summary = continuous_summary(engine, results, c, depth)
         print_continuous(engine, summary)
+        print_observability(engine, results, depth,
+                            draft.hc if is_head_drafter(draft) else draft.cfg,
+                            args)
         print(f"kernel launches: {json.dumps(launches)}")
         return
 

@@ -8,7 +8,7 @@
   calib    : whole-model ``quantize_params`` and the AWQ calibration forward
              (calibration batches from the distillation datagen pipeline).
   kvcache  : int8 KV cache with per-slot-per-head scales.
-  roofline : modeled bytes of one decode step.
+  roofline : modeled bytes of one decode step and of a round's draft phase.
 """
 from .qweight import (QWeight, dequantize, params_nbytes,  # noqa: F401
                       quantize_weight)
@@ -16,4 +16,5 @@ from .calib import (QUANT_WEIGHT_NAMES, cast_unquantized,  # noqa: F401
                     collect_act_stats, quantize_params)
 from .kvcache import (dequantize_kv_entry, kv_quantized,  # noqa: F401
                       quantize_kv_cache, quantize_kv_entry)
-from .roofline import DecodeBytes, decode_step_bytes  # noqa: F401
+from .roofline import (DecodeBytes, decode_step_bytes,  # noqa: F401
+                       drafter_round_bytes, head_round_bytes)

@@ -1,10 +1,12 @@
-"""Modeled bytes moved by one decode step of the quantized path
-(``repro.quant.roofline``, dense attention-only models).
+"""Modeled bytes moved by one decode step of the quantized path, and by
+one round's draft phase (``repro.quant.roofline``, dense attention-only
+models).
 
 Decode is bound by memory: the model reads every live weight byte and
 every live KV byte once per step, with the quantized dtypes and their scale
 vectors made explicit. ``chip_smoke.py`` prints it beside the bytes the
-quantized parameters really hold.
+quantized parameters really hold; ``obs.report.attribution_report``
+divides the draft and verify phases' bytes by their measured times.
 """
 from __future__ import annotations
 
@@ -72,3 +74,40 @@ def decode_step_bytes(cfg: ModelConfig, batch: int, ctx: int,
     if kv == "int8":
         scale += batch * ctx * L * cfg.num_kv_heads * 2 * 4.0
     return DecodeBytes(w_bytes, scale, kv_bytes, w_bytes + scale + kv_bytes)
+
+
+# ------------------------------------------------- drafting-phase comparison
+
+def drafter_round_bytes(cfg: ModelConfig, batch: int, ctx: int, gamma: int,
+                        weights: str = "float32",
+                        kv: str = "bfloat16") -> DecodeBytes:
+    """Modeled HBM bytes of one chain round's *draft phase* with a separate
+    drafter model: gamma+1 sequential single-token passes, each reading every
+    drafter weight byte and the drafter's own KV cache at the current
+    context (``core.speculative.sd_round``'s cost)."""
+    per = decode_step_bytes(cfg, batch, ctx, weights, kv)
+    n = gamma + 1
+    return DecodeBytes(per.weight_bytes * n, per.scale_bytes * n,
+                       per.kv_bytes * n, per.total * n)
+
+
+def head_round_bytes(head, t_cfg: ModelConfig, batch: int, ctx: int,
+                     gamma: int, weights: str = "float32") -> DecodeBytes:
+    """Modeled HBM bytes of one chain round's draft phase with self-
+    speculative draft heads (draftheads).
+
+    ``head`` is a ``HeadConfig`` (duck-typed: needs ``kind`` and
+    ``param_count()``). EAGLE runs gamma sequential head passes; Medusa emits
+    all gamma distributions in ONE pass. Each pass reads the head parameters
+    plus the target's LM head (reused for the projection; the embedding table
+    read is one row per token — negligible, not billed). ``kv_bytes`` is
+    exactly 0: heads keep no drafter cache, which is the memory claim this
+    model makes auditable. ``ctx`` is accepted for signature symmetry with
+    ``drafter_round_bytes`` and intentionally unused.
+    """
+    del ctx
+    wb = _BYTES[weights]
+    lm_head = t_cfg.d_model * t_cfg.vocab_size
+    passes = gamma if head.kind == "eagle" else 1
+    w_bytes = (head.param_count() + lm_head) * wb * passes
+    return DecodeBytes(w_bytes, 0.0, 0.0, w_bytes)

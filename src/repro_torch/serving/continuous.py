@@ -52,16 +52,25 @@ self-speculative: no drafter pool is allocated, prefill chunks run the
 target alone with ``return_hidden``, and the last chunk seeds the slot's
 ``h_feat`` (the target's compute dtype) from the last prompt position.
 
-Not ported yet (ROADMAP): the reference engine's observability fields
-(``tracer``, ``registry``, ``metrics_out``, ``time_phases``, ``quality``,
-``flight_record``, ``slo``) wait for the observability slice; this engine
-has no such fields. Recurrent models are refused with ``ValueError``, as
-in the reference.
+Observability (``obs``), every hook opt-in and off by default, each
+falling through on one attribute check when off: ``tracer`` (engine
+spans, per-request tracks stamped with the engine's own clock, counters),
+``registry`` (the scheduler's and telemetry's emitters, the
+accepted-per-round histogram, ``metrics_out`` JSONL snapshots),
+``time_phases`` (draft / verify / commit / prefill fenced by a CUDA event
+each and timed), ``quality`` (per-depth TVD, entropy and acceptance
+pooled per request, tenant and engine, with a drift alarm; the buffers
+ride the round's one device-to-host copy bit for bit), ``flight_record``
+(a ring of round records dumped on drift alarm, SLO breach or crash) and
+``slo`` (burn-rate tracking of TTFT/TPOT at retirement).
+
+Recurrent models are refused with ``ValueError``, as in the reference.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from contextlib import contextmanager
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -69,11 +78,16 @@ import torch
 
 from ..core.metrics import RequestStats, ServingTelemetry
 from ..core.sampling import probs_from_logits, sample_from_probs
-from ..core.speculative import (SDConfig, attention_only, sd_round,
+from ..core.speculative import (SDConfig, attention_only,
+                                init_quality_buffer, sd_commit_phase,
+                                sd_draft_phase, sd_round, sd_verify_phase,
                                 trim_paged_cache)
 from ..draftheads.drafter import HeadDrafter
 from ..models.model import Model
-from ..spectree.round import tree_round
+from ..obs import (NULL_TRACER, FlightRecorder, PhaseTimer, QualityStats,
+                   SLOTracker)
+from ..spectree.round import (tree_commit_phase, tree_draft_phase,
+                              tree_round, tree_verify_phase)
 from ..spectree.tree import TreeSpec
 from .engine import Request, Result
 from .kv_pool import PagedKVPool, ceil_div, copy_pages, invalidate_pages
@@ -124,6 +138,38 @@ class ContinuousEngine:
     # prefix sharing (serving.prefix_cache): radix cache over the paged pool
     # with per-page refcounts + COW
     prefix_cache: bool = False
+    # observability (obs): all opt-in, all off by default.
+    # tracer — span tracer; per-request lifecycle tracks + engine spans,
+    #   exported as Chrome/Perfetto trace-event JSON (tracer.write).
+    # registry — metrics registry; telemetry dataclasses emit into it live.
+    # time_phases — run the round's draft / verify / commit phases one by
+    #   one, each fenced by a CUDA event it synchronizes on, filling
+    #   ``self.phases`` with a draft/verify/commit/prefill wall-time split
+    #   and ``self.phase_device_ms`` with each phase's span on the card's
+    #   clock. The fences serialize host and card, which is why this is not
+    #   free and not the default.
+    # metrics_out — JSONL path; a registry snapshot is appended every
+    #   ``metrics_every`` steps and once at drain.
+    tracer: Optional[object] = None
+    registry: Optional[object] = None
+    time_phases: bool = False
+    metrics_out: Optional[str] = None
+    metrics_every: int = 50
+    # quality — speculation-quality telemetry (obs.quality): the round
+    #   leaves per-depth TVD/entropy/accept buffers in the round state,
+    #   fetched in the SAME per-round device-to-host copy as the token
+    #   windows. Pooled per request, per tenant and engine-wide; the engine
+    #   pool runs the Page–Hinkley drafter-drift detector.
+    # flight_record — bounded ring of per-round records (accept masks, TVD,
+    #   pool/queue snapshot, phase times when time_phases is on), dumped as
+    #   a post-mortem JSON bundle into ``flight_dir`` on drift alarm, SLO
+    #   breach, or engine crash.
+    # slo — obs.sketch.SLOConfig; TTFT/TPOT observed per retired request
+    #   into multi-window burn-rate trackers + quantile sketches.
+    quality: bool = False
+    flight_record: bool = False
+    flight_dir: str = "flight"
+    slo: Optional[object] = None
     # sanitize — debug mode: every ``sanitize_every`` decode rounds (and once
     # at drain) sweep the paged-pool bookkeeping (``_sanitize_check``); pure
     # host work, no device syncs.
@@ -149,6 +195,8 @@ class ContinuousEngine:
                 self.draft_heads.validate_tree(self.tree.depth)
             else:
                 self.draft_heads.validate_chain(self.sd.gamma)
+        if self.quality:
+            self.sd = replace(self.sd, quality=True)
         g = self.sd.gamma
         # tokens committable per decode round (accepted + pending) and the
         # per-row storage overshoot: a chain round writes at most gamma+1
@@ -165,9 +213,22 @@ class ContinuousEngine:
                        if self.prefix_cache else None)
         self.scheduler = Scheduler(
             self.policy, aging_s=self.aging_s,
-            prefix_probe=None if self.prefix is None else self._probe_prefix)
-        self.telemetry = ServingTelemetry()
+            prefix_probe=None if self.prefix is None else self._probe_prefix,
+            registry=self.registry)
+        self.telemetry = ServingTelemetry(registry=self.registry)
         self.stats: Dict[int, RequestStats] = {}
+        self._tr = self.tracer if self.tracer is not None else NULL_TRACER
+        self.phases = PhaseTimer()
+        self.phase_device_ms: Dict[str, float] = {}
+        if self.registry is not None:
+            # committed-tokens-per-round histogram: the live acceptance
+            # signal an adaptive-speculation controller would consume
+            self._m_accept = self.registry.histogram(
+                "sd_accepted_per_round",
+                buckets=tuple(float(i) for i in range(self._span + 1)),
+                help="tokens committed per row per decode round")
+        else:
+            self._m_accept = None
 
         dev = self.device = self.target.device
         B, buf = self.max_batch, self._row_cap + self._span + 1
@@ -192,6 +253,18 @@ class ContinuousEngine:
             self._state["d_cache"] = self.draft.init_paged_cache(
                 self.num_pages, self.page_size, kv_quant=self.kv_quant)
             self._drafter, self._d_params = self.draft, self.draft_params
+        # draft positions per round the quality buffers cover (tree rounds
+        # report along the committed root path, depth-indexed like a chain)
+        self._qdepth = self.tree.depth if self.tree is not None else g
+        self.quality_stats: Optional[QualityStats] = None
+        self.tenant_quality: Dict[str, QualityStats] = {}
+        if self.quality:
+            self._state["qual"] = init_quality_buffer(B, self._qdepth, dev)
+            self.quality_stats = QualityStats(depth=self._qdepth)
+        self.recorder = (FlightRecorder(out_dir=self.flight_dir)
+                         if self.flight_record else None)
+        self.slo_tracker = (SLOTracker(self.slo) if self.slo is not None
+                            else None)
         self._slots = [_Slot() for _ in range(B)]
         self._lengths_h = np.zeros((B,), np.int64)
         self._table_h = np.zeros((B, max_pages), np.int64)
@@ -228,10 +301,19 @@ class ContinuousEngine:
                              f"pages; the pool can ever free {cap}")
         # simulated arrivals are submitted early; latency clocks start at the
         # later of now and the request's nominal arrival
-        self.stats[req.request_id] = RequestStats(
-            request_id=req.request_id,
-            submit_time_s=max(self._now(), req.arrival_time_s),
-            prompt_tokens=plen)
+        stats = RequestStats(request_id=req.request_id,
+                             submit_time_s=max(self._now(), req.arrival_time_s),
+                             prompt_tokens=plen)
+        if self.quality:
+            stats.quality = QualityStats(depth=self._qdepth)
+        self.stats[req.request_id] = stats
+        # request lifecycle track, stamped with the clock RequestStats uses
+        # (engine-relative -> absolute perf_counter; ``_now`` above set
+        # ``_t0``), so TTFT/TPOT rebuilt from the trace match the stats
+        self._tr.async_begin("request", req.request_id,
+                             ts=self._t0 + stats.submit_time_s,
+                             prompt_tokens=plen,
+                             max_new_tokens=req.max_new_tokens)
         self.scheduler.submit(req)
 
     # ---------------------------------------------------------------- admit
@@ -312,6 +394,8 @@ class ContinuousEngine:
         slot.admit_seq, self._admit_seq = self._admit_seq, self._admit_seq + 1
         slot.stats = self.stats[req.request_id]
         slot.stats.admit_time_s = now
+        self._tr.async_instant("admit", req.request_id, ts=self._t0 + now,
+                               slot=i, prefix_hit=req.prefix_hit)
         if self.prefix is not None:
             # resume chunked prefill at the hit boundary: the shared pages
             # already hold positions [0, prefix_hit) for both models
@@ -380,6 +464,8 @@ class ContinuousEngine:
         slot.state = "decode"
         first = int(tok)
         slot.stats.first_token_time_s = self._now()   # after the fetch
+        self._tr.async_instant("first_token", req.request_id,
+                               ts=self._t0 + slot.stats.first_token_time_s)
         return first
 
     # ---------------------------------------------------------------- step
@@ -389,27 +475,35 @@ class ContinuousEngine:
         Returns a list of events: ("token", request_id, np.ndarray of new
         token ids) and ("finish", request_id, Result).
         """
+        t_step = time.perf_counter()
         now = self._now()
         events: List[tuple] = []
         did_work = False
-        while True:
-            req = self.scheduler.pop_admissible(now, self._can_admit)
-            if req is None:
-                break
-            self._admit(req, now)
-            did_work = True
+        with self._tr.span("admit"):
+            while True:
+                req = self.scheduler.pop_admissible(now, self._can_admit)
+                if req is None:
+                    break
+                self._admit(req, now)
+                did_work = True
 
         prefilling = [i for i, s in enumerate(self._slots)
                       if s.state == "prefill"]
         if prefilling:
             i = min(prefilling, key=lambda j: self._slots[j].admit_seq)
-            first_tok = self._prefill_one_chunk(i)
+            with self._tr.span("prefill_chunk", slot=i):
+                if self.time_phases:
+                    with self.phases.phase("prefill"), self._fence("prefill"):
+                        first_tok = self._prefill_one_chunk(i)
+                else:
+                    first_tok = self._prefill_one_chunk(i)
             if first_tok is not None:
                 events.extend(self._emit(i, np.asarray([first_tok], np.int64)))
             did_work = True
 
         if any(s.state == "decode" for s in self._slots):
-            events.extend(self._decode_round())
+            with self._tr.span("decode_round"):
+                events.extend(self._decode_round())
             did_work = True
 
         if self.sanitize and self.telemetry.decode_rounds >= \
@@ -418,15 +512,81 @@ class ContinuousEngine:
             self._sanitize_check()
 
         if did_work:   # idle ticks (waiting on arrivals) don't skew telemetry
-            self.telemetry.sample(self.scheduler.ready_depth(self._now()),
-                                  sum(s.state == "decode" for s in self._slots),
-                                  self.pool.num_free,
+            qd = self.scheduler.ready_depth(self._now())
+            act = sum(s.state == "decode" for s in self._slots)
+            self.telemetry.sample(qd, act, self.pool.num_free,
                                   self.pool.shared_page_fraction())
+            if self._tr.enabled:
+                self._tr.counter("queue_depth", qd)
+                self._tr.counter("active_rows", act)
+                self._tr.counter("free_pages", self.pool.num_free)
+            if self.time_phases:
+                self.phases.add_step(time.perf_counter() - t_step)
+            if self.registry is not None:
+                if self.prefix is not None:
+                    self.prefix.tel.emit(self.registry)
+                if self.quality_stats is not None:
+                    self.quality_stats.emit(self.registry)
+                if self.slo_tracker is not None:
+                    self.slo_tracker.emit(self.registry)
+                if self.metrics_out and \
+                        self.telemetry.steps % self.metrics_every == 0:
+                    self.registry.write_snapshot(self.metrics_out)
         else:
             time.sleep(5e-4)
         return events
 
+    @contextmanager
+    def _fence(self, name: str):
+        """The port's ``block_until_ready`` around one timed phase: on the
+        card, CUDA events at the phase's start and end, a wait on the end
+        event (so the host clock around this covers the phase's device
+        work), and the events' elapsed time added to
+        ``phase_device_ms[name]`` (the phase's span on the card's clock,
+        idle gaps included); a ``torch.profiler`` range of the same name
+        marks the phase in a trace. On the CPU a no-op."""
+        if self.device.type != "cuda":
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.profiler.record_function(f"phase_{name}"):
+            start.record()
+            yield
+            end.record()
+            end.synchronize()
+        self.phase_device_ms[name] = (self.phase_device_ms.get(name, 0.0)
+                                      + start.elapsed_time(end))
+
+    def _run_round_phased(self, st):
+        """The same round as ``_round``'s fused call, phase by phase, each
+        traced, timed and fenced (``time_phases``): identical math and
+        generator draws, observable seams."""
+        tr, timer, gen = self._tr, self.phases, self._gen
+        drafter, dp, target, tp = (self._drafter, self._d_params, self.target,
+                                   self.target_params)
+        with tr.span("draft"), timer.phase("draft"), self._fence("draft"):
+            if self.tree is not None:
+                draft_out = tree_draft_phase(drafter, self.sd, self.tree, dp,
+                                             st, gen, None, target, tp)
+            else:
+                draft_out = sd_draft_phase(drafter, self.sd, dp, st, gen, None,
+                                           target, tp)
+        with tr.span("verify"), timer.phase("verify"), self._fence("verify"):
+            if self.tree is not None:
+                verify_out = tree_verify_phase(target, self.sd, self.tree, tp,
+                                               st, draft_out)
+            else:
+                verify_out = sd_verify_phase(target, self.sd, tp, st, draft_out)
+        with tr.span("commit"), timer.phase("commit"), self._fence("commit"):
+            if self.tree is not None:
+                return tree_commit_phase(self.sd, self.tree, st, draft_out,
+                                         verify_out, gen)
+            return sd_commit_phase(self.sd, st, draft_out, verify_out, gen)
+
     def _round(self, st):
+        if self.time_phases:
+            return self._run_round_phased(st)
         if self.tree is not None:
             return tree_round(self._drafter, self.target, self.sd, self.tree,
                               self._d_params, self.target_params, st,
@@ -443,10 +603,24 @@ class ContinuousEngine:
         st, _ = self._round(self._state)
         self._state = st
         # one transfer: lengths + committed windows + the fresh pending token
+        # (+ the quality buffers when enabled: their float32 bits ride the
+        # int64 copy unchanged)
         win = st["tokens"].gather(1, base[:, None] + self._window)
-        got = torch.cat([st["lengths"][:, None], win, st["pending"][:, None]],
-                        dim=1).cpu().numpy()
-        lengths_h, win_h, pending_h = got[:, 0], got[:, 1:-1], got[:, -1]
+        fetch = [st["lengths"][:, None], win, st["pending"][:, None]]
+        if self.quality:
+            q = st["qual"]
+            fetch += [q["tvd"].view(torch.int32).long(),
+                      q["ent"].view(torch.int32).long(),
+                      q["acc"].long(), q["drafted"].long()]
+        got = torch.cat(fetch, dim=1).cpu().numpy()
+        S, K = self._span, self._qdepth
+        lengths_h, win_h, pending_h = got[:, 0], got[:, 1:S + 1], got[:, S + 1]
+        qual_h = None
+        if self.quality:
+            q = got[:, S + 2:]
+            qual_h = (q[:, :K].astype(np.int32).view(np.float32),
+                      q[:, K:2 * K].astype(np.int32).view(np.float32),
+                      q[:, 2 * K:3 * K].astype(bool), q[:, 3 * K:].astype(bool))
         # the fetch above waits for the card, so this spans the real round
         round_dt = time.perf_counter() - t_round
         self._lengths_h = lengths_h.copy()
@@ -461,15 +635,78 @@ class ContinuousEngine:
             slot.stats.sd.update(n_committed)
             slot.stats.sd.rounds += 1
             slot.stats.sd.wall_time_s += round_dt
+            if self._m_accept is not None:
+                self._m_accept.observe(n_committed)
+                self.registry.counter("sd_tokens_total",
+                                      "committed tokens").inc(n_committed)
+                self.registry.counter("sd_blocks_total",
+                                      "speculation rounds").inc()
             # stream: window[0] is the previous pending (already emitted);
             # the new pending is available now and always commits next round
             fresh = np.concatenate([win_h[i, 1:n_committed], [pending_h[i]]])
             events.extend(self._emit(i, fresh.astype(np.int64)))
             if lengths_h[i] >= slot.target_len:
                 retiring.append(i)
+        if self.quality:
+            self._pool_quality(qual_h)
+        if self.recorder is not None:
+            self._record_round(qual_h, old_len, lengths_h)
         for i in retiring:
             events.append(self._retire(i))
         return events
+
+    def _pool_quality(self, qual_h):
+        """Fold this round's quality buffers into the per-request,
+        per-tenant and engine-wide accumulators; a drift alarm on the
+        engine pool triggers a flight-recorder dump."""
+        tvd_h, ent_h, acc_h, drafted_h = qual_h
+        rows = [i for i, s in enumerate(self._slots) if s.state == "decode"]
+        if not rows:
+            return
+        for i in rows:
+            rq = self._slots[i].stats.quality
+            if rq is not None:
+                rq.update_round(tvd_h[i], ent_h[i], acc_h[i], drafted_h[i])
+        by_tenant: Dict[str, List[int]] = {}
+        for i in rows:
+            tenant = getattr(self._slots[i].req, "tenant", "") or ""
+            by_tenant.setdefault(tenant, []).append(i)
+        for tenant, idxs in by_tenant.items():
+            qs = self.tenant_quality.get(tenant)
+            if qs is None:
+                qs = self.tenant_quality[tenant] = QualityStats(
+                    depth=self._qdepth)
+            qs.update_round(tvd_h[idxs], ent_h[idxs], acc_h[idxs],
+                            drafted_h[idxs])
+        alarm = self.quality_stats.update_round(
+            tvd_h[rows], ent_h[rows], acc_h[rows], drafted_h[rows])
+        if alarm and self.recorder is not None:
+            self.recorder.dump("drift_alarm", context={
+                "decode_rounds": self.telemetry.decode_rounds,
+                "quality": self.quality_stats.snapshot()})
+
+    def _record_round(self, qual_h, old_len, lengths_h):
+        """One bounded flight-recorder entry per decode round."""
+        slots = {}
+        for i, s in enumerate(self._slots):
+            if s.state != "decode":
+                continue
+            rec = {"request_id": s.req.request_id,
+                   "committed": int(lengths_h[i] - old_len[i])}
+            if qual_h is not None:
+                tvd_h, _, acc_h, drafted_h = qual_h
+                d = drafted_h[i]
+                rec["accept"] = [bool(b) for b in acc_h[i]]
+                rec["mean_tvd"] = float(tvd_h[i][d].mean()) if d.any() else None
+            slots[i] = rec
+        entry = {"slots": slots,
+                 "queue_depth": self.scheduler.ready_depth(self._now()),
+                 "free_pages": self.pool.num_free,
+                 "active_rows": len(slots)}
+        if self.time_phases:
+            entry["phase_s"] = {k: round(v, 6)
+                                for k, v in self.phases.seconds.items()}
+        self.recorder.record_round(**entry)
 
     # ---------------------------------------------------------------- sanitize
     def _sanitize_check(self):
@@ -535,6 +772,14 @@ class ContinuousEngine:
         slot, st = self._slots[i], self._state
         slot.stats.finish_time_s = self._now()
         slot.stats.new_tokens = slot.target_len - slot.prompt_len
+        if self.slo_tracker is not None:
+            breached = self.slo_tracker.observe(slot.stats.ttft_s,
+                                                slot.stats.tpot_s)
+            if breached and self.recorder is not None:
+                self.recorder.dump("slo_breach", context={
+                    "request_id": slot.req.request_id,
+                    "metrics": breached,
+                    "slo": self.slo_tracker.snapshot()})
         freed = self.pool.free_slot(i)
         if freed:
             for cache in self._caches():
@@ -548,6 +793,10 @@ class ContinuousEngine:
                         wall_time_s=slot.stats.finish_time_s
                         - slot.stats.submit_time_s,
                         rounds=slot.stats.sd.rounds)
+        self._tr.async_end("request", slot.req.request_id,
+                           ts=self._t0 + slot.stats.finish_time_s,
+                           new_tokens=slot.stats.new_tokens,
+                           tau=round(slot.stats.sd.tau, 4))
         req = slot.req
         self._slots[i] = _Slot()
         self.telemetry.completed += 1
@@ -561,15 +810,31 @@ class ContinuousEngine:
             s.state != "free" for s in self._slots)
 
     def stream(self):
-        """Generator yielding events until the engine drains."""
-        while self.has_work():
-            yield from self.step()
+        """Generator yielding events until the engine drains. With the
+        flight recorder on, an exception escaping the loop dumps the ring
+        (reason "crash") before propagating."""
+        try:
+            while self.has_work():
+                yield from self.step()
+        except Exception as e:
+            if self.recorder is not None:
+                ctx = {"error": f"{type(e).__name__}: {e}"}
+                if self.quality_stats is not None:
+                    ctx["quality"] = self.quality_stats.snapshot()
+                self.recorder.dump("crash", context=ctx)
+            raise
 
     def run(self) -> List[Result]:
         out = [ev[2] for ev in self.stream() if ev[0] == "finish"]
         if self.sanitize:
             self._sanitize_check()   # drained end state: no leaked pages
+        self.finalize_metrics()
         return out
+
+    def finalize_metrics(self):
+        """Final registry snapshot at drain (periodic ones are step-gated)."""
+        if self.registry is not None and self.metrics_out:
+            self.registry.write_snapshot(self.metrics_out)
 
     def serve(self, requests: Sequence) -> List[Result]:
         """Submit ``requests`` (``ServeRequest``s, or the static engine's

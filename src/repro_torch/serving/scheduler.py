@@ -44,9 +44,10 @@ class ServeRequest:
     arrival_time_s: float = 0.0        # relative to engine clock start
     on_token: Optional[Callable] = None    # callback(request_id, np.ndarray)
     on_finish: Optional[Callable] = None   # callback(Result)
-    # tenant/traffic-scenario tag (traffic.Scenario.build stamps its name;
-    # the reference pools speculation-quality stats per tenant, which the
-    # port's engine does not yet). "" = untagged.
+    # tenant/traffic-scenario tag (traffic.Scenario.build stamps its name);
+    # the engine pools speculation-quality stats per distinct value, so a
+    # drafter that degrades for ONE workload shows up in that tenant's pool
+    # instead of being averaged away engine-wide. "" = untagged.
     tenant: str = ""
     # stamped by the scheduler's prefix probe at admission time (engine-owned
     # prefix cache): prompt tokens already resident in the KV pool, and the

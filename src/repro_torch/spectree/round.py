@@ -36,6 +36,10 @@ heads' in-round attention is plain torch, as in the reference).
 A round may take a ``noise`` dict with the reference's draws from its
 round key: {"draft": [per level (B, n_d, k_d, V) Gumbel], "u": [per depth
 (k_d, B) uniforms], "stop": (depth, B, V) Gumbel, "bonus": (B, V) Gumbel}.
+
+With ``SDConfig.quality`` the commit also writes ``state["qual"]`` along
+the accepted root path (``core.speculative.quality_buffer``), depth-indexed
+like a chain's.
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ import torch
 from ..core.sampling import probs_from_logits, sample_from_probs
 from ..core.speculative import (SDConfig, _pick, _prefill_state,
                                 attention_only, commit_tokens, gate_rows,
-                                masked_page_table, run_rounds)
+                                init_quality_buffer, masked_page_table,
+                                quality_buffer, run_rounds)
 from ..draftheads.drafter import head_draft_tree, is_head_drafter
 from ..models.model import Model
 from .tree import TreeSpec, tree_attn_mask
@@ -260,6 +265,17 @@ def tree_commit_phase(sdc: SDConfig, spec: TreeSpec, state, draft_out,
         "tokens": tokens, "lengths": lengths + n_acc + 1, "pending": new_pending,
         "t_cache": commit_path(state, verify_out["t_cache"], path_nodes, n_acc,
                                N)}
+    if sdc.quality:
+        # quality buffer along the accepted path: depth step d accepted the
+        # child of path node d against (p, q) at that node. Path entries
+        # past the stop repeat the stop node, so only depths <= n_acc are
+        # genuine drafts: the drafted mask leaves the repeats out.
+        D = spec.depth
+        pn = path_nodes[:, :D]                                        # (B, D)
+        p_path = p_node[pn, bidx[:, None]].transpose(0, 1)            # (D, B, V)
+        q_path = q_node[pn, bidx[:, None]].transpose(0, 1)
+        drafted = torch.arange(D, device=dev)[None] <= n_acc[:, None]
+        new_state["qual"] = quality_buffer(p_path, q_path, n_acc, drafted)
     if "t_hid" in verify_out:
         # the feature of the deepest accepted node, at position L + n_acc
         new_state["h_feat"] = verify_out["t_hid"][bidx, cur]
@@ -290,10 +306,12 @@ def tree_speculative_generate(draft, target: Model, d_params, t_params,
     tile: the kernel masks the ragged last tile itself."""
     if gen is None:
         gen = torch.Generator(device=prompt.device).manual_seed(0)
-    S = prompt.shape[1]
+    B, S = prompt.shape
     max_total = S + max_new_tokens + spec.num_nodes + 2
     state = _prefill_state(draft, target, d_params, t_params, prompt,
                            max_total, sdc, gen)
+    if sdc.quality:
+        state["qual"] = init_quality_buffer(B, spec.depth, prompt.device)
 
     def round_fn(st):
         return tree_round(draft, target, sdc, spec, d_params, t_params, st, gen)

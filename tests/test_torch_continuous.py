@@ -12,6 +12,7 @@ mix with the prefix cache, so must the prefix-cache counters. The host
 modules must give the same orders, tables and request streams for the same
 inputs. Then the serving CLI with ``--continuous`` on the CPU.
 """
+import json
 import os
 import subprocess
 import sys
@@ -378,11 +379,71 @@ def test_serve_cli_continuous_needs_a_card_or_cpu_flag(monkeypatch):
         serve.main(["--arch", "llama2-7b-chat", "--prefix-cache"])   # no --continuous
 
 
-@pytest.mark.parametrize("flag", ["--trace-out", "--metrics-out",
-                                  "--time-phases", "--quality-telemetry",
-                                  "--flight-record", "--draft-head"])
-def test_serve_cli_rejects_unported_flags(flag):
-    """The reference CLI's observability and draft-head flags wait for later
-    slices: argparse refuses them rather than ignoring them."""
-    with pytest.raises(SystemExit):
-        serve.main([*CLI, "--device", "cpu", flag, "x"])
+OBS_FLAGS = {   # flag -> its arguments
+    "--trace-out": ["t.json"], "--metrics-out": ["m.jsonl"],
+    "--time-phases": [], "--peak-gbps": ["3350"], "--torch-profile": ["prof"],
+    "--quality-telemetry": [], "--flight-record": [],
+    "--slo-ttft-ms": ["500"], "--slo-tpot-ms": ["100"],
+}
+REFUSED = {   # case -> the serving CLI's arguments after --arch
+    **{flag: [flag, *args] for flag, args in OBS_FLAGS.items()},
+    "--jax-profile": ["--continuous", "--jax-profile", "prof"],
+    "unpaired --slo-ttft-ms": ["--continuous", "--slo-ttft-ms", "500"],
+    "unpaired --slo-tpot-ms": ["--continuous", "--slo-tpot-ms", "100"],
+}
+
+
+@pytest.mark.parametrize("flag", sorted(REFUSED))
+def test_serve_cli_rejects_unported_flags(flag, capsys):
+    """The reference CLI's rule: each observability flag instruments the
+    continuous engine and is refused without --continuous; the SLO
+    thresholds come as a pair; the reference's --jax-profile is not a flag
+    of the port (--torch-profile takes its place). argparse refuses these
+    before any model is built."""
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", "llama2-7b-chat", "--reduced", "--device", "cpu",
+                    *REFUSED[flag]])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    if flag in OBS_FLAGS:
+        assert f"{flag} instruments the continuous engine" in err
+    elif flag.startswith("unpaired"):
+        assert "come as a pair" in err
+    else:
+        assert "unrecognized arguments: --jax-profile" in err
+
+
+def test_serve_cli_continuous_with_every_observability_flag(tmp_path, capsys):
+    """The CPU --reduced --continuous CLI with every observability flag: the
+    files it writes parse and hold what they should, and it prints the
+    reference CLI's reports."""
+    d = tmp_path
+    serve.main(["--arch", "llama2-7b-chat", "--reduced", "--continuous",
+                "--tree", "--temperature", "0.7", "--traffic-mix", "chat",
+                "--requests", "3", "--device", "cpu",
+                "--trace-out", str(d / "t.json"),
+                "--metrics-out", str(d / "m.jsonl"), "--time-phases",
+                "--peak-gbps", "3350", "--quality-telemetry",
+                "--flight-record", str(d / "flight"),
+                "--slo-ttft-ms", "0.001", "--slo-tpot-ms", "100000",
+                "--torch-profile", str(d / "prof")])
+    out = capsys.readouterr().out
+    assert "continuous: 3 requests" in out
+    for line in ("quality over", "accept-vs-entropy:", "tenant chat:",
+                 "acceptance attribution over", "slo: ttft<0.001ms",
+                 "flight recorder:", "phase time over",
+                 "roofline-vs-measured over", "draft: modeled",
+                 "MBU", "metrics:", "trace:", "torch.profiler trace:"):
+        assert line in out, line
+    trace = json.loads((d / "t.json").read_text())["traceEvents"]
+    names = {e["name"] for e in trace}
+    assert {"request", "admit", "first_token", "decode_round", "draft",
+            "verify", "commit", "queue_depth"} <= names
+    assert len([e for e in trace if e["ph"] == "e"]) == 3
+    snaps = [json.loads(ln) for ln in (d / "m.jsonl").read_text().splitlines()]
+    assert snaps[-1]["metrics"]["serve_completed_total"] == 3
+    prom = (d / "m.jsonl.prom").read_text()
+    assert "sd_pooled_tokens_total" in prom and "quality_rounds_total" in prom
+    bundles = list((d / "flight").glob("flight_*_slo_breach.json"))
+    assert bundles and json.loads(bundles[0].read_text())["reason"] == "slo_breach"
+    assert (d / "prof" / "torch_trace.json").stat().st_size > 0

@@ -142,24 +142,27 @@ def check_round(tnew, jnew, tn, jn):
     check_caches(tnew, jnew)
 
 
-def chain_noise(kr, g, V):
+def chain_noise(kr, g, V, rows=3):
+    """The draws the reference's chain round makes from its key ``kr``."""
     keys = jax.random.split(kr, g + 2)
-    return {"draft": tensor(jnp.stack([gumbel(keys[j], (3, V))
+    return {"draft": tensor(jnp.stack([gumbel(keys[j], (rows, V))
                                        for j in range(g)])),
-            "u": tensor(jax.random.uniform(keys[g], (g, 3))),
-            "residual": tensor(gumbel(keys[g + 1], (3, V)))}
+            "u": tensor(jax.random.uniform(keys[g], (g, rows))),
+            "residual": tensor(gumbel(keys[g + 1], (rows, V)))}
 
 
-def tree_noise(kr, jts, V):
+def tree_noise(kr, jts, V, rows=3):
+    """The draws the reference's tree round makes from its key ``kr``."""
     D, branching = jts.depth, jts.branching
     keys = jax.random.split(kr, 2 * D + sum(branching) + 1)
     rest = iter(keys[D:])
     u, stop = [], []
     for d in range(D):
-        u.append(tensor(jnp.stack([jax.random.uniform(next(rest), (3,))
+        u.append(tensor(jnp.stack([jax.random.uniform(next(rest), (rows,))
                                    for _ in range(branching[d])])))
-        stop.append(tensor(gumbel(next(rest), (3, V))))
-    return {"draft": [tensor(gumbel(keys[d], (3, jts.level_sizes[d],
+        stop.append(tensor(gumbel(next(rest), (rows, V))))
+    return {"draft": [tensor(gumbel(keys[d], (rows, jts.level_sizes[d],
                                               branching[d], V)))
                       for d in range(D)],
-            "u": u, "stop": stop, "bonus": tensor(gumbel(next(rest), (3, V)))}
+            "u": u, "stop": stop,
+            "bonus": tensor(gumbel(next(rest), (rows, V)))}

@@ -22,6 +22,9 @@ from repro_torch.models.model import Model as TModel
 
 TOL = 1e-5          # float32 on both sides: only the order of sums differs
 B, S, MAX_NEW = 2, 12, 16
+TINY = dict(arch_type="dense", d_model=64, num_heads=4, num_kv_heads=2,
+            d_ff=128, vocab_size=64, attn_chunk=16, remat=False,
+            dtype="float32")   # the reference engine tests' tiny config
 PAIRS = {   # (target, drafter): hd 32/16 with G 3/2, and the reduced Llama-2
     "pipeline": (target_config(), draft_config()),
     "llama2-reduced": (jcfgs.reduced(jllama.CONFIG),
@@ -108,3 +111,19 @@ def check_state(tnew, jnew, tn, jn):
             assert np.array_equal(layer["pos"].numpy(), np.asarray(jc["pos"][i]))
             np.testing.assert_allclose(layer["k"].numpy(),
                                        np.asarray(jc["k"][i]), atol=TOL, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def tiny_pair():
+    """Reference and port engines' models of the tiny config (target 4
+    layers, drafter 2) with the same float32 weights:
+    {"j": [jt, jtp, jd, jdp], "t": [tt, ttp, td, tdp]}."""
+    out = {"j": [], "t": []}
+    for name, layers, seed in (("t", 4, 0), ("d", 2, 1)):
+        jm = JModel(jcfgs.ModelConfig(name=name, num_layers=layers, **TINY))
+        jp, _ = jm.init(jax.random.PRNGKey(seed))
+        tm = TModel(port_config(jm.cfg), device="cpu")
+        out["j"] += [jm, jp]
+        out["t"] += [tm, params_from_jax(jax.tree.map(np.asarray, jp),
+                                         tm.cfg, "cpu")]
+    return out
