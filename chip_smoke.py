@@ -2,15 +2,19 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line and then one line of its seconds:
   1. device and build: the card, then every CUDA kernel of the port built
      from ``src/repro_torch/kernels/csrc`` with nvcc (one process each);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes of the serving path and at every head dim the reference takes
      (16-256), the continuous path's paged views (B 8, 128-304 slots,
-     null-page columns, rows 2-7 fully masked and finite), a second input
-     set run twice for equal outputs, and its time
-     beside its bound, the plain version's and one PyTorch library call's;
+     null-page columns, rows 2-7 fully masked and finite), the served
+     archs' shapes (Yi-9B's verify at G 8, hd 128, S 201 and 1024, bf16 and
+     float32, and its drafter levels at G 2; Chameleon-34B's verify at G 8;
+     MusicGen's verify and drafter levels at hd 64), a second input set run
+     twice for equal outputs, and its time at Llama's and at Yi's verify
+     shape beside its bound, the plain version's and one PyTorch library
+     call's (scaled_dot_product_attention, GQA by the library);
   3. full-width tree-speculative serving: Llama-2-7B-Chat with the 115M
      drafter in bf16, random weights from fixed seeds, 4 requests, prompt
      128, 64 new tokens, tree (2, 2), temperature 0.7; the tree attention
@@ -60,7 +64,8 @@ Phases, each printing one JSON line:
      shapes of the pair (B 4, Hkv 32 and 8, G 1, hd 128, S of the chain
      cache, 1024 and 4096, bf16 and float32, K/V through an int8 cache),
      of the pipeline configs (hd 32 G 3, hd 16 G 2) and of the reference's
-     kernel benchmark (Hkv 4, G 2, S 1024, float32), with softcap, ragged
+     kernel benchmark (Hkv 4, G 2, S 1024, float32) and of Yi-9B's decode
+     (Hkv 4, G 8, S 1024, bf16 and float32), with softcap, ragged
      S, empty ring slots and a fully masked row; a copy of the kernel with
      a bf16 accumulator must fail that tolerance; the port's decode
      attention at full width (target layers 0 and 31, also with an int8
@@ -72,7 +77,7 @@ Phases, each printing one JSON line:
      reference's --quick sizes: pretraining, chat-SFT, datagen, KLD/TVD/
      TVD++ fine-tuning, tau and MBSU;
  14. the training CLI (``repro_torch.launch.train --reduced``), pretrain
-     and TVD++ distill, 50 steps each, in subprocesses;
+     and TVD++ distill, 10 steps each, in subprocesses;
  15. tree serving of the reduced config (head dim 32) through the serving
      CLI in a subprocess, its tree_attention launches counted;
  16. continuous serving of the full-width pair (after phase 12, on phase
@@ -139,8 +144,26 @@ Phases, each printing one JSON line:
      and device ms per round), (c)'s phase split with each phase's device
      span (CUDA events) and busy time (the profiler's kernels), the
      roofline attribution at 3350 GB/s, the quality summary and the
-     acceptance report.
-Phases 10, 11, 13-15, 18 and 21 run before phase 9. Then the ``kernels`` line, the
+     acceptance report;
+ 23. the architecture registry (after phase 22, once phase 3's models are
+     freed): (a) Yi-9B at full width (48 layers, d 4096, 32 heads on 4 KV
+     heads, V 64000; 8.83B parameters) with its drafter (4 layers, d 1024)
+     in bf16 from seeds 0/1, tree (2, 2) and chain gamma 3 over 4 x (128 +
+     64) at temperature 0.7: 48 + 4 * 3 = 60 tree_attention launches a tree
+     round (tree_attention at G 8), tau, MBSU with c from param_count,
+     tok/s, peak memory, host and device ms per round (torch.profiler);
+     (b) phase 16's chat stream through the continuous engine by tree with
+     the prefix cache, every request finished at 60 launches a round; (c)
+     greedy exactness with 2 float32 target layers at Yi's width: chain
+     and tree, static and continuous (4 requests through 2 slots), equal
+     to the target's greedy tokens; (d) the same by tree over 2 x (64 +
+     16) for Phi-4-mini (G 3, V 200064), Minitron-4B (G 3, V 256000) and
+     Chameleon-34B (qk-norm, d 8192, 64 heads on 8) at published widths,
+     2 + 12 launches a tree round; (e) the serving CLI by tree at full
+     width in subprocesses for Yi-9B and MusicGen-large (its single-
+     codebook variant: the note must be printed), launches checked.
+Phase 23 runs after phase 22; phases 10, 11, 13-15, 18 and 21 run before
+phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
 non-zero exit code and no result line.
@@ -148,6 +171,7 @@ non-zero exit code and no result line.
 import bisect
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -366,7 +390,10 @@ def phase2_kernels():
     reduced config's 32, the pipeline drafter's 16, gemma2_9b's 256) and a
     tree of 13 nodes at G 3. A second input set run twice must give equal
     outputs (the split combine is in a fixed order). Then the continuous
-    path's paged views with whole batches of fully masked rows."""
+    path's paged views with whole batches of fully masked rows, and the
+    shapes of the registry's served archs (Yi-9B's verify at G 8, S 201 and
+    1024, and its drafter levels at G 2; Chameleon's verify at G 8;
+    MusicGen's at hd 64). Times at Llama's and Yi's verify shapes."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import tree_attention as tk
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -386,6 +413,17 @@ def phase2_kernels():
           for hd, hkv, G in ((16, 2, 2), (32, 4, 1), (256, 8, 2))
           for dt in (bf, f32)],
         ("N13-G3", 2, 4, 13, 3, 128, 201, bf, None),
+        # the registry's served archs (phase 23): Yi-9B's verify pass (32
+        # heads on 4 KV heads: G 8, 56 query rows a KV head) and drafter
+        # levels (8 on 4: G 2), Chameleon-34B's verify (64 on 8), and
+        # MusicGen's (MHA at hd 64) verify and drafter levels
+        *[("yi-verify", 4, 4, 7, 8, 128, S, dt, None)
+          for S in (201, 1024) for dt in (bf, f32)],
+        *[("yi-drafter-level", 4, 4, N, 2, 128, 201, dt, None)
+          for N, dt in ((1, bf), (2, bf), (4, bf), (4, f32))],
+        ("chameleon-verify", 4, 8, 7, 8, 128, 201, bf, None),
+        ("musicgen-verify", 4, 32, 7, 1, 64, 201, bf, None),
+        ("musicgen-drafter-level", 4, 8, 4, 1, 64, 201, bf, None),
     ]
     results = []
     for label, B, Hkv, N, G, hd, S, dtype, cap in cases:
@@ -416,43 +454,78 @@ def phase2_kernels():
     assert deterministic, "tree_attention differs between two runs"
     paged = check_paged_tree_cases(gen)
 
-    # timing at the main path's shape (target verify, bf16, S 201), rotating
-    # over enough input sets to exceed the 50 MB L2 as the serving loop does
-    sets = [tree_inputs(gen, 4, 32, 7, 1, 128, 201, bf) for _ in range(8)]
+    # timing at the main path's shape (Llama's verify, bf16, S 201) and at
+    # Yi-9B's (G 8)
+    llama = time_tree(gen, 4, 32, 7, 1, 128, 201)
+    yi = time_tree(gen, 4, 4, 7, 8, 128, 201)
+    emit({"phase": 2, "cases": results, "paged_cases": paged,
+          "deterministic": deterministic,
+          "timing_shape": "B4 Hkv32 N7 G1 hd128 S201 bf16, 8 input sets",
+          **llama, "yi_verify_timing": {
+              "shape": "B4 Hkv4 N7 G8 hd128 S201 bf16, 8 input sets", **yi}})
+    return {"tree_attention": {"max_abs_err": results[0]["max_abs_err"],
+                               "ms": llama["device_ms"]["kernel"],
+                               "plain_ms": llama["device_ms"]["plain"],
+                               "bound_ms": llama["bound_ms"],
+                               "bound_by": llama["bound_by"],
+                               "library_ms": llama["device_ms"]["library"],
+                               "yi_verify": {
+                                   "max_abs_err": next(
+                                       r["max_abs_err"] for r in results
+                                       if r["case"] == "yi-verify"),
+                                   "ms": yi["device_ms"]["kernel"],
+                                   "plain_ms": yi["device_ms"]["plain"],
+                                   "bound_ms": yi["bound_ms"],
+                                   "bound_by": yi["bound_by"],
+                                   "library_ms": yi["device_ms"]["library"]}}}
+
+
+def sdpa_tree(q, k, v, mask):
+    """The one PyTorch call that computes tree attention (a yardstick
+    only): scaled_dot_product_attention on (B, H, N, hd) queries, head h
+    = kv * G + g as the model lays them out, GQA by the library."""
+    B, Hkv, N, G, hd = q.shape
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(2, 3).reshape(B, Hkv * G, N, hd), k.transpose(1, 2),
+        v.transpose(1, 2), attn_mask=mask[:, None], enable_gqa=G > 1)
+    return out.reshape(B, Hkv, G, N, hd).transpose(2, 3)
+
+
+def time_tree(gen, B, Hkv, N, G, hd, S):
+    """Device ms of the kernel, its plain version and SDPA at one bf16
+    shape (graph replay, in turns kernel, plain, library, kernel), rotating
+    over 8 input sets (more than the 50 MB L2 at the 7B verify shape, as
+    the serving loop finds it); then the time per eager call as the
+    serving loop pays it (host launch cost included), the bound, and
+    SDPA's agreement with the plain version on the rows that see a slot."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tree_attention as tk
+    sets = [tree_inputs(gen, B, Hkv, N, G, hd, S, torch.bfloat16)
+            for _ in range(8)]
+    want = ref.ref_tree_attention(*sets[0])
+    lib = sdpa_tree(*sets[0]).float()
+    seen = sets[0][3].any(-1)[:, None, :, None, None].expand_as(want)
+    lib_err = (lib - want)[seen].abs().max().item()
+    assert lib_err <= LIBRARY_TOL * want.abs().max().item(), \
+        ("SDPA disagrees with the plain version", lib_err)
     it = iter(range(10 ** 9))
 
     def rotate(fn):
         return lambda: fn(*sets[next(it) % len(sets)])
 
-    def library(q, k, v, mask):
-        B, Hkv, N, G, hd = q.shape
-        return torch.nn.functional.scaled_dot_product_attention(
-            q.reshape(B, Hkv, N, hd), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask[:, None])
-
-    # device time (graph replay) in turns kernel, plain, library, kernel;
-    # then the time per eager call as the serving loop pays it (host
-    # launch cost included)
     fns = {"kernel": tk.tree_attention, "plain": ref.ref_tree_attention,
-           "library": library}
+           "library": sdpa_tree}
     dev = {name: graph_ms(rotate(fn)) for name, fn in fns.items()}
     dev["kernel_repeat"] = graph_ms(rotate(tk.tree_attention))
     eager = {name: cuda_ms(rotate(fn), iters=200) for name, fn in fns.items()}
     bound_ms, bound_by = tree_bound_ms(*sets[0])
-    chunk, splits = tk.plan(4, 32, 7, 1, 128, 201, 2, tk._sm_count(0))
-    emit({"phase": 2, "cases": results, "paged_cases": paged,
-          "deterministic": deterministic,
-          "timing_shape": "B4 Hkv32 N7 G1 hd128 S201 bf16, 8 input sets",
-          "splits": splits, "chunk": chunk,
-          "device_ms": dev, "eager_call_ms": eager,
-          "bound_ms": bound_ms, "bound_by": bound_by})
-    return {"tree_attention": {"max_abs_err": results[0]["max_abs_err"],
-                               "ms": dev["kernel"], "plain_ms": dev["plain"],
-                               "bound_ms": bound_ms, "bound_by": bound_by,
-                               "library_ms": dev["library"]}}
+    chunk, splits = tk.plan(B, Hkv, N, G, hd, S, 2, tk._sm_count(0))
+    return {"splits": splits, "chunk": chunk, "device_ms": dev,
+            "eager_call_ms": eager, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_max_abs_err": lib_err}
 
 
-def phase3_tree_serving(models, smi):
+def phase3_tree_serving(models, smi, phase=3):
     from repro_torch.core.metrics import mbsu
     from repro_torch.core.speculative import SDConfig
     from repro_torch.kernels import ops
@@ -479,7 +552,7 @@ def phase3_tree_serving(models, smi):
     assert stats.tau >= 1.0 and math.isfinite(stats.tau), stats.tau
     breakdown = profile_tree(models, prompts, sdc, spec,
                              stats.wall_time_s * 1e3 / stats.rounds)
-    emit({"phase": 3, "path": "tree", "arch": target.cfg.name,
+    emit({"phase": phase, "path": "tree", "arch": target.cfg.name,
           "drafter": draft.cfg.name, "dtype": target.cfg.dtype,
           "requests": 4, "prompt_len": 128, "max_new": 64, "tree": spec.branching,
           "temperature": 0.7, "rounds": stats.rounds, "launches": launches,
@@ -494,15 +567,18 @@ def phase3_tree_serving(models, smi):
 
 def profile_tree(models, prompts, sdc, spec, wall_ms_per_round):
     """Where a tree round's time goes: device time by kernel over a short
-    tree run under torch.profiler, against the unprofiled host time of a
-    round. Prints None where the profiler saw no device activity."""
+    tree run (8 new tokens, about 6 rounds) under torch.profiler, against
+    the unprofiled host time of a round. The profiler records the
+    device's activity only: with the host's ops recorded too it took 2.5
+    to 4 times as long for the same device times. Prints None where the
+    profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     target, t_params, draft, d_params, _ = models
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, stats = serve.serve_tree(target, t_params, draft, d_params, prompts,
-                                    16, sdc, spec, seed=2)
+                                    8, sdc, spec, seed=2)
         torch.cuda.synchronize()
     return kernel_breakdown(prof, stats.rounds, wall_ms_per_round)
 
@@ -540,7 +616,7 @@ def kernel_breakdown(prof, rounds, wall_ms_per_round):
                             for e in top]}
 
 
-def phase4_chain_serving(models, smi):
+def phase4_chain_serving(models, smi, phase=4):
     from repro_torch.core.metrics import mbsu
     from repro_torch.core.speculative import SDConfig
     from repro_torch.kernels import ops
@@ -559,7 +635,8 @@ def phase4_chain_serving(models, smi):
         assert len(r.tokens) == 64 and ((r.tokens >= 0)
                                         & (r.tokens < target.cfg.vocab_size)).all()
     assert tau >= 1.0 and math.isfinite(tau), tau
-    emit({"phase": 4, "path": "chain", "gamma": 3, "temperature": 0.7,
+    emit({"phase": phase, "path": "chain", "arch": target.cfg.name,
+          "gamma": 3, "temperature": 0.7,
           "tau": tau, "mbsu": mbsu(tau, c, 3), "tok_s": tok_s,
           "ar_tok_s": ar_tok_s, "launches": chain_launches,
           "note": "tok/s over each batch's wall time, prefill included",
@@ -567,41 +644,90 @@ def phase4_chain_serving(models, smi):
     return chain_launches
 
 
-def phase5_greedy_exactness():
+def greedy_exactness(arch, P, M, chain=True, continuous=False):
+    """Temperature 0 with the arch's target cut to 2 layers in float32 and
+    its drafter (float32) at published widths: tree (2, 2) and, with
+    ``chain``, chain gamma 3 tokens over 2 prompts of P tokens must equal
+    the target's greedy tokens, with tree_attention launched (2 + drafter
+    layers * 3) times a tree round, and so must tree tokens with the
+    target as its own drafter (every path accepted, tau above 2); with
+    ``continuous`` also the
+    continuous engine, chain and tree, 4 requests of different lengths
+    through 2 slots, against each request's greedy tokens."""
     from repro_torch.configs import get_config
     from repro_torch.core.speculative import (SDConfig, autoregressive_generate,
                                               speculative_generate)
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model
     from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousEngine, ServeRequest
     from repro_torch.spectree.round import tree_speculative_generate
     from repro_torch.spectree.tree import TreeSpec
-    cfg = get_config("llama2-7b-chat").replace(num_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(num_layers=2, dtype="float32")
     target = Model(cfg, "cuda")
     t_params = target.init(0)
     draft = Model(cfg.drafter(), "cuda")
     d_params = draft.init(1)
-    P, M = 64, 32
     prompt = torch.as_tensor(serve.make_prompts(2, P, cfg.vocab_size, seed=5),
-                             device="cuda")
+                             device=target.device)
     sdc = SDConfig(gamma=3, temperature=0.0)
-    ar, _ = autoregressive_generate(target, t_params, prompt, M, temperature=0.0)
-    chain, _ = speculative_generate(draft, target, d_params, t_params, prompt,
-                                    M, sdc)
     spec = TreeSpec((2, 2))
+    ar, _ = autoregressive_generate(target, t_params, prompt, M, temperature=0.0)
+    out = {"arch": cfg.name, "drafter": draft.cfg.name, "target_layers": 2,
+           "dtype": "float32", "temperature": 0.0, "prompt": [2, P], "max_new": M}
+    if chain:
+        toks, _ = speculative_generate(draft, target, d_params, t_params,
+                                       prompt, M, sdc)
+        out["chain_equals_ar"] = torch.equal(toks[:, :P + M], ar)
     ops.reset_launches()
-    tree, tstats = tree_speculative_generate(draft, target, d_params, t_params,
+    toks, tstats = tree_speculative_generate(draft, target, d_params, t_params,
                                              prompt, M, sdc, spec)
-    launches = ops.LAUNCHES["tree_attention"]
+    launches = dict(ops.LAUNCHES)
     per_round = cfg.num_layers + draft.cfg.num_layers * (spec.depth + 1)
-    ok_chain = torch.equal(chain[:, :P + M], ar)
-    ok_tree = torch.equal(tree[:, :P + M], ar)
-    emit({"phase": 5, "arch": cfg.name, "target_layers": 2, "dtype": "float32",
-          "temperature": 0.0, "chain_equals_ar": ok_chain,
-          "tree_equals_ar": ok_tree, "tree_launches": launches,
-          "tree_rounds": tstats.rounds, "tree_tau": tstats.tau})
-    assert ok_chain and ok_tree, "speculative greedy tokens differ from AR"
-    assert launches == tstats.rounds * per_round, (launches, tstats.rounds)
+    out.update(tree_equals_ar=torch.equal(toks[:, :P + M], ar),
+               tree_launches=launches["tree_attention"],
+               tree_rounds=tstats.rounds, tree_launches_per_round=per_round,
+               tree_tau=tstats.tau)
+    ok = launches == {**{k: 0 for k in launches},
+                      "tree_attention": tstats.rounds * per_round}
+    # random drafters are never accepted at temperature 0 (tau 1); the
+    # target as its own drafter is, so its tree rounds commit whole paths
+    toks, sstats = tree_speculative_generate(target, target, t_params,
+                                             t_params, prompt, M, sdc, spec)
+    out.update(self_draft_tree_equals_ar=torch.equal(toks[:, :P + M], ar),
+               self_draft_tree_tau=sstats.tau)
+    ok &= sstats.tau > 2.0
+    if continuous:
+        rng = np.random.default_rng(17)
+        lens, news = (40, 64, 50, 57), (16, 12, 20, 14)
+        prompts = [rng.integers(3, cfg.vocab_size, L).astype(np.int64)
+                   for L in lens]
+        greedy = {i: autoregressive_generate(
+            target, t_params, torch.as_tensor(p[None], device=target.device), m,
+            temperature=0.0)[0][0, len(p):].cpu().numpy()
+            for i, (p, m) in enumerate(zip(prompts, news))}
+        for name, tree in (("continuous_chain", None), ("continuous_tree", spec)):
+            engine = ContinuousEngine(
+                target=target, target_params=t_params, draft=draft,
+                draft_params=d_params, sd=sdc, tree=tree, max_batch=2,
+                page_size=16, prefill_chunk=32,
+                max_seq_len=max(lens) + max(news))
+            got = {r.request_id: r.tokens for r in engine.serve(
+                [ServeRequest(prompt=p, max_new_tokens=m, request_id=i)
+                 for i, (p, m) in enumerate(zip(prompts, news))])}
+            out[f"{name}_equals_ar"] = all(np.array_equal(got[i], greedy[i])
+                                           for i in greedy)
+            ok &= engine.telemetry.max_queue_depth >= 1   # staggered admission
+    del target, draft, t_params, d_params
+    torch.cuda.empty_cache()
+    return out, ok and all(v for k, v in out.items() if k.endswith("_equals_ar"))
+
+
+def phase5_greedy_exactness():
+    out, ok = greedy_exactness("llama2-7b-chat", 64, 32)
+    emit({"phase": 5, **out})
+    assert ok, ("speculative greedy tokens differ from AR, or tree launches "
+                "are off", out)
 
 # ------------------------------------------------ distillation loss (6-8)
 
@@ -1525,6 +1651,9 @@ FD_CASES = [  # (label, B, Hkv, G, hd, S, dtype, softcap, kv, masked_row)
     ("ragged", 4, 32, 1, 128, 201, torch.bfloat16, None, "float", False),
     ("fully-masked-row", 4, 8, 1, 128, 1024, torch.bfloat16, None, "float", True),
     ("S1", 1, 2, 1, 128, 1, torch.float32, None, "float", False),
+    # Yi-9B's decode (32 heads on 4 KV heads: G 8)
+    *[("yi-S1024", 4, 4, 8, 128, 1024, dt, None, "float", False)
+      for dt in (torch.bfloat16, torch.float32)],
 ]
 
 
@@ -1689,6 +1818,7 @@ def phase12_flash_decode(models, smi):
     for label, B, Hkv, G, S, dtype in (("target-S1024", 4, 32, 1, 1024, torch.bfloat16),
                                        ("target-S4096", 4, 32, 1, 4096, torch.bfloat16),
                                        ("drafter-S1024", 4, 8, 1, 1024, torch.bfloat16),
+                                       ("yi-S1024", 4, 4, 8, 1024, torch.bfloat16),
                                        ("bench", 4, 4, 2, 1024, torch.float32)):
         one = decode_inputs(gen, B, Hkv, G, 128, S, dtype)
         set_bytes = sum(t.numel() * t.element_size() for t in one)
@@ -1728,7 +1858,8 @@ def phase12_flash_decode(models, smi):
           "model_checks": model_checks, "launches": launches,
           "library_vs_plain": lib_err,
           "timing_note": "device ms per call, CUDA graph of 200 calls, q/k/v "
-                         "bf16 (bench: fp32), hd 128, G 1 (bench: G 2)",
+                         "bf16 (bench: fp32), hd 128, G 1 (bench: G 2, "
+                         "yi: G 8)",
           "timing": timing, "nvidia_smi": smi})
     torch.cuda.empty_cache()
     t = timing["target-S1024"]
@@ -1772,13 +1903,13 @@ STEP_LOSS = re.compile(r"^step (\d+): .*'loss': ([^,}]+)", re.M)
 def phase14_train_cli(smi):
     """The training CLI in subprocesses: --phase pretrain (the loss must
     fall below its first logged value) and --phase distill --loss tvdpp
-    (the TVD++ surrogate is 0 up to rounding: finite), 50 steps each."""
+    (the TVD++ surrogate is 0 up to rounding: finite), 10 steps each."""
     runs = {}
     for name, extra in (("pretrain", ["--phase", "pretrain", "--save",
                                       str(ROOT / "build" / "train_cli.npz")]),
                         ("distill", ["--phase", "distill", "--loss", "tvdpp"])):
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               "llama2-7b-chat", "--reduced", "--steps", "50", *extra]
+               "llama2-7b-chat", "--reduced", "--steps", "10", *extra]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                               cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
@@ -1937,7 +2068,7 @@ def profile_continuous(models, sdc, spec, rounds=4, **engine_kw):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
     launches_per_round = ops.LAUNCHES["tree_attention"] / rounds
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:   # as profile_tree
         for _ in range(rounds):
             engine.step()
         torch.cuda.synchronize()
@@ -2731,6 +2862,118 @@ def phase22_observability(models, smi):
     return out
 
 
+# ------------------------------------------------ the architecture registry (23)
+
+ARCH_CLI_RUNS = (   # (arch, note printed) served by tree through the CLI
+    ("yi-9b", False), ("musicgen-large", True))
+GREEDY_ARCHS = ("phi4-mini-3.8b", "minitron-4b", "chameleon-34b")
+NOTE = "note: serving single-codebook variant of musicgen-large"
+
+
+def arch_clis():
+    """The serving CLI by tree at full width in subprocesses (4 requests,
+    16 + 32 tokens, temperature 0.7): Yi-9B, and MusicGen-large, which
+    must print the reference's single-codebook note. Each must exit 0 with
+    tree_attention launched (target + drafter layers * 3) times a round
+    of its printed rounds, and no other kernel."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, note in ARCH_CLI_RUNS:
+        cfg = get_config(arch)
+        per_round = cfg.num_layers + cfg.drafter().num_layers * 3
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+               "--tree", "--temperature", "0.7", "--requests", "4"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=ROOT,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        found = LAUNCH_LINE.search(proc.stdout)
+        rounds = ROUNDS_FIELD.search(proc.stdout)
+        run = out[arch] = {
+            "cmd": " ".join(cmd[2:]), "rc": proc.returncode,
+            "s": time.perf_counter() - t0,
+            "launches": json.loads(found[1]) if found else None,
+            "rounds": int(rounds[1]) if rounds else None,
+            "launches_per_round": per_round, "note_printed": NOTE in proc.stdout,
+            "stdout": proc.stdout.strip().splitlines()[-6:],
+            "stderr": proc.stderr.strip().splitlines()[-3:]}
+        la = run["launches"] or {}
+        ok = (proc.returncode == 0 and run["rounds"] is not None
+              and la.get("tree_attention") == per_round * run["rounds"] > 0
+              and all(v == 0 for k, v in la.items() if k != "tree_attention")
+              and run["note_printed"] == note)
+        if not ok:
+            emit({"phase": "23e", "cli": out})
+            raise AssertionError(f"serving CLI run of {arch} failed: {run}")
+    return out
+
+
+def phase23_archs(smi):
+    """The registry's served archs on the card. (a) Yi-9B at full width in
+    bf16 with its drafter (seeds 0/1): tree (2, 2) and chain gamma 3 over 4
+    x (128 + 64) at temperature 0.7, 48 + 4 * 3 = 60 tree_attention
+    launches a tree round, MBSU with c from ``param_count``; (b) phase 16's
+    chat stream through the continuous engine by tree with the prefix
+    cache; (c) greedy exactness with 2 float32 target layers, chain and
+    tree, static and continuous; (d) greedy exactness by tree for
+    Phi-4-mini, Minitron-4B and Chameleon-34B (qk-norm) at published widths
+    with 2 float32 target layers; (e) the serving CLI by tree at full
+    width for Yi-9B and MusicGen-large. Returns the tree_attention launches
+    of (a) and (b)."""
+    from repro_torch.core.speculative import SDConfig
+    from repro_torch.launch import serve
+    from repro_torch.spectree.tree import TreeSpec
+    spec = TreeSpec((2, 2))
+    resident_gb = torch.cuda.memory_allocated() / 1e9     # before Yi
+    torch.cuda.reset_peak_memory_stats()
+    models = serve.build_models("yi-9b", False, "cuda")
+    target, _, draft, _, c = models
+    c_cfg = draft.cfg.param_count() / target.cfg.param_count()
+    assert c == c_cfg, (c, c_cfg)          # param_count matches the init
+    per_round = tree_launches_per_round(target, draft, spec)
+    assert per_round == 60, per_round
+    emit({"phase": "23a", "arch": target.cfg.name, "drafter": draft.cfg.name,
+          "params": target.cfg.param_count(), "drafter_params":
+          draft.cfg.param_count(), "c": c, "heads": target.cfg.num_heads,
+          "kv_heads": target.cfg.num_kv_heads, "G": target.cfg.q_per_kv,
+          "resident_before_gb": resident_gb,
+          "weights_gb": torch.cuda.memory_allocated() / 1e9 - resident_gb})
+    tree = phase3_tree_serving(models, smi, phase="23a")
+    chain = phase4_chain_serving(models, smi, phase="23a")
+    assert all(n == 0 for k, n in tree.items() if k != "tree_attention"), tree
+    assert not any(chain.values()), chain
+    cont, _ = continuous_pass(models, SDConfig(gamma=3, temperature=0.7), spec,
+                              prefix=True, kv_quant=False)
+    emit({"phase": "23b", "arch": target.cfg.name, "mix": CONT_MIX,
+          "requests": CONT_N, "arrival_rate": CONT_RATE, "engine": CONT_ENGINE,
+          "temperature": 0.7, "pass": cont, "nvidia_smi": smi})
+    del models, target, draft
+    torch.cuda.empty_cache()
+    results = {}
+    for arch, P, M, chain_too, continuous in (
+            ("yi-9b", 64, 32, True, True),
+            *[(a, 64, 16, False, False) for a in GREEDY_ARCHS]):
+        out, ok = greedy_exactness(arch, P, M, chain_too, continuous)
+        results[arch] = out
+        emit({"phase": "23c" if arch == "yi-9b" else "23d", **out})
+        assert ok, ("greedy tokens differ, or tree launches are off", out)
+    emit({"phase": "23e", "cli": arch_clis(), "nvidia_smi": smi})
+    return tree["tree_attention"] + cont["launches"]["tree_attention"]
+
+
+PHASE_SECONDS = {}
+
+
+def timed(label, fn, *args, **kw):
+    """Run one phase and print its seconds on the host clock (the last
+    phase's line then says where a failed run stopped)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[label] = round(time.perf_counter() - t0, 3)
+    emit({"phase": label, "seconds": PHASE_SECONDS[label]})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2747,48 +2990,53 @@ def main():
     from repro_torch.launch import serve
 
     t_start = time.perf_counter()
-    smi = phase1_device_and_build()
-    timings = phase2_kernels()
-    models = serve.build_models("llama2-7b-chat", False, "cuda")
-    launches = phase3_tree_serving(models, smi)
-    chain_launches = phase4_chain_serving(models, smi)
+    smi = timed(1, phase1_device_and_build)
+    timings = timed(2, phase2_kernels)
+    models = timed("build", serve.build_models, "llama2-7b-chat", False, "cuda")
+    launches = timed(3, phase3_tree_serving, models, smi)
+    chain_launches = timed(4, phase4_chain_serving, models, smi)
     # the reference never dispatches flash decode on its serving path
     serving_fd = launches["flash_decode"] + chain_launches["flash_decode"]
     assert serving_fd == 0, serving_fd
-    launches["flash_decode"], fd_timing = phase12_flash_decode(models, smi)
+    launches["flash_decode"], fd_timing = timed(12, phase12_flash_decode,
+                                                models, smi)
     timings.update(fd_timing)
-    continuous = phase16_continuous_serving(models, smi)
-    head_launches = phase19_head_serving(models, smi)
-    phase22_observability(models, smi)
+    continuous = timed(16, phase16_continuous_serving, models, smi)
+    head_launches = timed(19, phase19_head_serving, models, smi)
+    timed(22, phase22_observability, models, smi)
     del models
+    gc.collect()        # the engines' reference cycles still hold the pair
     torch.cuda.empty_cache()
-    phase5_greedy_exactness()
+    arch_launches = timed(23, phase23_archs, smi)
     torch.cuda.empty_cache()
-    cont_exact = phase17_continuous_greedy_exactness()
+    timed(5, phase5_greedy_exactness)
     torch.cuda.empty_cache()
-    phase20_head_greedy_exactness()
+    cont_exact = timed(17, phase17_continuous_greedy_exactness)
     torch.cuda.empty_cache()
-    timings.update(phase6_distill_kernels())
-    launches.update({k: v for k, v in phase7_training(smi).items()
+    timed(20, phase20_head_greedy_exactness)
+    torch.cuda.empty_cache()
+    timings.update(timed(6, phase6_distill_kernels))
+    launches.update({k: v for k, v in timed(7, phase7_training, smi).items()
                      if k in ("row_logsumexp", "loss_terms", "loss_grad")})
     torch.cuda.empty_cache()
-    phase8_float32_routes()
+    timed(8, phase8_float32_routes)
     torch.cuda.empty_cache()
     # phase 9 runs last: after its M 512 timings the host dispatched phase
     # 10's rounds 1.7 times slower on an H100 host (PERF.md)
     for weights in ("int8", "int4"):
-        launches[f"quant_matmul_{weights}"] = phase10_quant_serving(smi, weights)
+        launches[f"quant_matmul_{weights}"] = timed(
+            f"10-{weights}", phase10_quant_serving, smi, weights)
         torch.cuda.empty_cache()
-    phase11_quant_greedy_exactness()
+    timed(11, phase11_quant_greedy_exactness)
     torch.cuda.empty_cache()
-    phase13_pipeline(smi)
+    timed(13, phase13_pipeline, smi)
     torch.cuda.empty_cache()
-    phase14_train_cli(smi)
-    phase15_reduced_tree_cli(smi)
-    phase18_continuous_cli(smi)
-    phase21_head_training(smi)
+    timed(14, phase14_train_cli, smi)
+    timed(15, phase15_reduced_tree_cli, smi)
+    timed(18, phase18_continuous_cli, smi)
+    timed(21, phase21_head_training, smi)
     torch.cuda.empty_cache()
-    timings.update(phase9_quant_kernels())
+    timings.update(timed(9, phase9_quant_kernels))
     kernels = []
     for name, (route, source, replaces) in KERNEL_ROUTES.items():
         kernels.append({"name": name, "route": route, "source": source,
@@ -2805,7 +3053,12 @@ def main():
         # EAGLE and Medusa, continuous EAGLE); no other kernel runs there
         kernels[-1]["head_path_launches"] = (
             head_launches if name == "tree_attention" else 0)
-    emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
+        # launches on the registry's path: phase 23's Yi-9B tree passes
+        # (static and continuous); no other kernel runs there
+        kernels[-1]["arch_path_launches"] = (
+            arch_launches if name == "tree_attention" else 0)
+    emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
+          "phase_seconds": PHASE_SECONDS})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

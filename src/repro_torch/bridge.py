@@ -33,7 +33,7 @@ from .configs.base import ModelConfig
 from .quant.qweight import QWeight
 
 _KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
-_NORMS = ("norm1", "norm2", "final_norm")
+_NORMS = ("norm1", "norm2", "final_norm", "q_norm", "k_norm")
 # norms of the draft heads: the eagle block's three, and medusa's (K, D)
 _HEAD_NORMS = ("norm1", "norm2", "out_norm", "norm")
 _META_KEY = "__quant_meta__"

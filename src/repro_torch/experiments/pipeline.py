@@ -55,15 +55,15 @@ SEQ = 64
 
 
 def target_config() -> ModelConfig:
-    return ModelConfig(name="target-chat", num_layers=6, d_model=192,
-                       num_heads=6, num_kv_heads=2, head_dim=32, d_ff=384,
-                       vocab_size=VOCAB, attn_chunk=32, remat=False)
+    return ModelConfig(name="target-chat", arch_type="dense", num_layers=6,
+                       d_model=192, num_heads=6, num_kv_heads=2, head_dim=32,
+                       d_ff=384, vocab_size=VOCAB, attn_chunk=32, remat=False)
 
 
 def draft_config() -> ModelConfig:
-    return ModelConfig(name="drafter", num_layers=2, d_model=64, num_heads=4,
-                       num_kv_heads=2, head_dim=16, d_ff=128,
-                       vocab_size=VOCAB, attn_chunk=32, remat=False)
+    return ModelConfig(name="drafter", arch_type="dense", num_layers=2,
+                       d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+                       d_ff=128, vocab_size=VOCAB, attn_chunk=32, remat=False)
 
 
 @dataclass

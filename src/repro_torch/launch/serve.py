@@ -63,6 +63,17 @@ Weights are random, drawn from fixed seeds (target 0, drafter 1); a model to
 be quantized is drawn in float32, as the reference's parameters are, and its
 unquantized leaves are then cast to the compute dtype. ``--reduced`` serves
 the small same-family variant (CPU smoke runs).
+
+``--arch`` takes every key of ``configs.ARCHS``. The dense ones are served
+(``yi-9b``, ``phi4-mini-3.8b``, ``minitron-4b``, ``chameleon-34b`` with
+qk-norm, the Llama pair), ``musicgen-large`` as its single-codebook variant,
+as the reference's launcher serves it. An arch whose layers the port does
+not run yet (``gemma2-9b``, ``granite-moe-3b-a800m``, ``grok-1-314b``,
+``zamba2-7b``, ``xlstm-1.3b``) exits with the model's refusal, which names
+the ROADMAP item that ports it:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --tree \
+      --temperature 0.7 --requests 4 --prompt-len 128 --max-new 64
 """
 from __future__ import annotations
 
@@ -80,6 +91,7 @@ from ..core.speculative import SDConfig
 from ..draftheads import HeadConfig, HeadDrafter, is_head_drafter
 from ..kernels import ops
 from ..models.model import Model
+from ..models.transformer import check_config
 from ..obs import (MetricsRegistry, SLOConfig, Tracer, acceptance_report,
                    attribution_report, format_acceptance_report,
                    format_attribution, torch_profile)
@@ -113,6 +125,21 @@ def calibration_tokens(target, t_params, n: int, prompt_len: int,
         gen=torch.Generator(device=target.device).manual_seed(seed))
 
 
+def serving_config(arch: str, small: bool, note: bool = False):
+    """The config the launcher serves for ``arch``: the reduced variant
+    with ``small``; a multi-codebook config as its single-codebook variant,
+    as the reference's launcher serves it (the engines stream one token id
+    per step), printing the reference's note with ``note``."""
+    cfg = get_config(arch)
+    if small:
+        cfg = reduced(cfg)
+    if cfg.num_codebooks > 1:
+        if note:
+            print(f"note: serving single-codebook variant of {cfg.name}")
+        cfg = cfg.replace(num_codebooks=1)
+    return cfg
+
+
 def build_models(arch: str, small: bool, device, quant: QuantConfig = None,
                  quant_target: bool = False, calib_seqs: int = 4,
                  calib_len: int = 16):
@@ -123,9 +150,7 @@ def build_models(arch: str, small: bool, device, quant: QuantConfig = None,
     target generates ``calib_seqs`` calibration prompts of ``calib_len``
     tokens, and the drafter (and with ``quant_target`` the target) is
     quantized from its float32 weights; the float32 copies are dropped."""
-    cfg = get_config(arch)
-    if small:
-        cfg = reduced(cfg)
+    cfg = serving_config(arch, small)
     target = Model(cfg, device)
     draft = Model(cfg.drafter().replace(vocab_size=cfg.vocab_size), device)
     if quant is None or quant.bits == 0:
@@ -154,9 +179,7 @@ def build_heads(arch: str, small: bool, device, kind: str,
     or ``ckpt``, matmul weights in the target's compute dtype; c is the
     heads' parameter count over the target's (the embedding and LM head
     are the target's own and not counted)."""
-    cfg = get_config(arch)
-    if small:
-        cfg = reduced(cfg)
+    cfg = serving_config(arch, small)
     target = Model(cfg, device)
     t_params = target.init(0)
     draft = HeadDrafter(HeadConfig.for_target(kind, cfg,
@@ -494,6 +517,10 @@ def main(argv=None):
     elif args.head_ckpt is not None:
         ap.error("--head-ckpt requires --draft-head")
 
+    try:        # a config the port cannot run yet exits with its reason
+        check_config(serving_config(args.arch, args.reduced, note=True))
+    except ValueError as e:
+        raise SystemExit(str(e))
     quant = (QuantConfig(weights=args.quant_weights,
                          group_size=args.quant_group)
              if args.quant_weights else None)
@@ -566,7 +593,7 @@ def main(argv=None):
         # round runs depth+1 batched level passes (chain analogue: gamma)
         print(f"tree SD: tau={stats.tau:.3f} "
               f"MBSU={mbsu(stats.tau, c, spec.depth):.3f} "
-              f"{stats.tokens_per_s():.1f} tok/s")
+              f"{stats.tokens_per_s():.1f} tok/s rounds={stats.rounds}")
         depth_acc = ", ".join(f"d{d}={r:.2f}"
                               for d, r in stats.depth_acceptance().items())
         print(f"  per-depth acceptance: {depth_acc or 'none'}")

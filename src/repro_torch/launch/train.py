@@ -24,6 +24,11 @@ head checkpoint (``checkpoint.save_draft_heads``) that ``launch.serve
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-7b-chat \
       --reduced --steps 50 --draft-head eagle --save heads.npz
 
+``--arch`` takes every key of ``configs.ARCHS``; an arch whose layers the
+port does not run yet (Gemma-2's local attention, MoE, recurrent layers,
+MusicGen's four codebooks) exits with the model's refusal, which names the
+ROADMAP item that ports it.
+
 The synthetic corpus holds six V x V float64 transition matrices, so a
 full-width vocabulary (Llama-2's 32000: 49 GB) is refused; ``--reduced``
 cuts it to 512.
@@ -44,6 +49,7 @@ from ..data import SyntheticCorpus, mixed_batches, pack_documents, simple_batche
 from ..draftheads import (HeadConfig, HeadDrafter, finetune_heads,
                           make_head_train_state)
 from ..models.model import Model
+from ..models.transformer import check_config
 from ..training import finetune, make_train_state, train
 
 # host memory the corpus's transition matrices may take
@@ -83,6 +89,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    try:        # a config the port cannot run yet exits with its reason
+        check_config(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e))
     if corpus_bytes(cfg.vocab_size) > CORPUS_MAX_BYTES:
         raise SystemExit(
             f"{cfg.name}: the synthetic corpus would take "

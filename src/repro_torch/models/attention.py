@@ -1,7 +1,8 @@
-"""GQA attention: training and prefill (query-chunked causal) and decode
-against a KV cache, with the slots and ancestor masks of tree speculation
-(``repro.models.attention``): the dense per-row cache and the shared paged
-pool of continuous serving (``paged_decode_attention``).
+"""GQA attention, with optional qk-norm: training and prefill
+(query-chunked causal) and decode against a KV cache, with the slots and
+ancestor masks of tree speculation (``repro.models.attention``): the dense
+per-row cache and the shared paged pool of continuous serving
+(``paged_decode_attention``).
 
 Dispatch is the reference's: a tree-masked decode call goes to the tree
 attention kernel (``kernels.ops.tree_verify_attention``); training, prefill and
@@ -24,7 +25,7 @@ import torch
 from ..kernels import ops
 from ..quant.kvcache import (dequantize_kv_entry, kv_quantized,
                              quantize_kv_entry)
-from .layers import apply_rope, matmul_param, softcap
+from .layers import apply_rope, matmul_param, rms_norm, softcap
 
 NEG_INF = -2.0e38
 
@@ -35,6 +36,9 @@ def _project_qkv(params, x, cfg, positions):
     q = matmul_param(x, params["wq"]).reshape(B, S, cfg.num_heads, hd)
     k = matmul_param(x, params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
     v = matmul_param(x, params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:     # per head, in float32, cast back before RoPE
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -73,7 +73,10 @@ def chunked_ce_from_hidden(params, hidden, labels, cfg):
 
 
 class Model:
-    """Entry points run on the card unless ``device="cpu"`` is passed."""
+    """Entry points run on the card unless ``device="cpu"`` is passed. A
+    config the port cannot run yet is refused by ``init``, ``init_cache``
+    and ``init_paged_cache``, with the ``ValueError`` of
+    ``transformer.check_config``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         self.cfg = cfg

@@ -1,0 +1,178 @@
+"""The port's architecture registry against ``repro.configs``, and the
+refusals of the configs whose layers the port does not run yet.
+
+The configs are plain data: every field, ``param_count``, ``drafter()`` and
+``reduced()`` must equal the reference's exactly (no tolerance). The
+refused archs must raise a ``ValueError`` that names their ROADMAP item at
+construction, from the paged pool's constructor and from both CLIs (an
+exit with the message, not a traceback)."""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro.configs as jcfgs
+from repro.configs import base as jbase
+import repro_torch.configs as tcfgs
+from repro_torch.configs import base as tbase
+from repro_torch.launch import serve, train
+from repro_torch.models import transformer as tfm
+from repro_torch.models.model import Model
+from torch_parity import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+ALL = list(jcfgs.ARCHS)
+# arch -> the ROADMAP item its refusal names (ROADMAP.md §1)
+REFUSED = {
+    "gemma2-9b": "ROADMAP §1 item 2",
+    "granite-moe-3b-a800m": "ROADMAP §1 item 4",
+    "grok-1-314b": "ROADMAP §1 item 4",
+    "zamba2-7b": "ROADMAP §1 item 5",
+    "xlstm-1.3b": "ROADMAP §1 item 5",
+    "musicgen-large": "ROADMAP §1 item 3",     # K 4 through Model
+}
+SERVED = ("phi4-mini-3.8b", "minitron-4b", "chameleon-34b", "yi-9b",
+          "llama2-7b-chat", "llama2-chat-drafter-115m")   # and musicgen, K 1
+
+
+def as_dict(cfg):
+    """Every field, plus the compute dtype by name."""
+    d = dataclasses.asdict(cfg)
+    d["compute_dtype"] = str(cfg.compute_dtype).split(".")[-1]
+    return d
+
+
+def test_registry_keys_and_assigned_equal_the_reference():
+    assert list(tcfgs.ARCHS) == ALL
+    assert tcfgs.ASSIGNED == jcfgs.ASSIGNED
+    assert [f.name for f in dataclasses.fields(tbase.ModelConfig)] == \
+        [f.name for f in dataclasses.fields(jbase.ModelConfig)]
+    for kind in ("ATTN", "LOCAL_ATTN", "MAMBA", "MLSTM", "SLSTM", "SHARED_ATTN"):
+        assert getattr(tbase, kind) == getattr(jbase, kind)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tcfgs.get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ALL)
+def test_config_param_count_drafter_reduced_equal_the_reference(arch):
+    t, j = tcfgs.get_config(arch), jcfgs.get_config(arch)
+    assert as_dict(t) == as_dict(j)
+    assert t.is_moe == j.is_moe
+    assert t.param_count() == j.param_count()
+    assert as_dict(t.drafter()) == as_dict(j.drafter())
+    assert t.drafter().param_count() == j.drafter().param_count()
+    for vocab in (512, 64):
+        tr, jr = tcfgs.reduced(t, vocab), jcfgs.reduced(j, vocab)
+        assert as_dict(tr) == as_dict(jr)
+        assert tr.param_count() == jr.param_count()
+        assert as_dict(tr.drafter()) == as_dict(jr.drafter())
+
+
+@pytest.mark.parametrize("arch", jcfgs.ASSIGNED)
+def test_full_config_metadata(arch):
+    """The port of ``test_configs_smoke.py::test_full_config_metadata``."""
+    cfg = tcfgs.get_config(arch)
+    assert cfg.citation
+    assert cfg.num_heads % cfg.num_kv_heads == 0
+    assert cfg.param_count() > 1e8
+    d = cfg.drafter()
+    assert d.param_count() < 0.12 * cfg.param_count(), \
+        f"drafter too large: {d.param_count() / cfg.param_count():.2%}"
+
+
+def test_paper_pair_sizes():
+    """The port of ``test_configs_smoke.py::test_paper_pair_sizes``: the
+    drafter is about 1.64% of Llama 2 7B (paper Table 1)."""
+    t = tcfgs.get_config("llama2-7b-chat")
+    d = tcfgs.get_config("llama2-chat-drafter-115m")
+    ratio = d.param_count() / t.param_count()
+    assert 0.01 < ratio < 0.025, ratio
+    assert abs(t.param_count() - 6.7e9) / 6.7e9 < 0.1
+    assert abs(d.param_count() - 115e6) / 115e6 < 0.25
+    assert t.arch_type == "dense" and "Table 1" in t.citation
+
+
+@pytest.mark.parametrize("arch", SERVED + ("musicgen-large",))
+def test_served_configs_pass_the_check(arch):
+    cfg = tcfgs.get_config(arch).replace(num_codebooks=1)
+    for cfg in (cfg, cfg.drafter(), tcfgs.reduced(cfg)):
+        tfm.check_config(cfg)
+
+
+@pytest.mark.parametrize("arch", sorted(REFUSED))
+@pytest.mark.parametrize("size", ("full", "reduced"))
+def test_refused_archs_raise_at_construction(arch, size):
+    """Model(...).init, init_cache and init_paged_cache refuse the config
+    before allocating anything, naming its ROADMAP item (the full configs
+    would take tens of GB if they did not)."""
+    cfg = tcfgs.get_config(arch)
+    if size == "reduced":
+        cfg = tcfgs.reduced(cfg)
+    item = REFUSED[arch]
+    with pytest.raises(ValueError, match=item):
+        Model(cfg, device="cpu").init(0)
+    with pytest.raises(ValueError, match=item):
+        tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    with pytest.raises(ValueError, match=item):
+        tfm.init_cache(cfg, 2, 16, "cpu")
+    with pytest.raises(ValueError, match=item):
+        tfm.init_paged_cache(cfg, 4, 16, "cpu")
+
+
+def test_refusal_names_each_feature():
+    base = tcfgs.reduced(tcfgs.get_config("yi-9b"))
+    for over, item in ((dict(scale_embed=True), "item 2"),
+                       (dict(layer_pattern=("local_attn", "attn")), "item 2"),
+                       (dict(num_experts=4, num_experts_per_tok=2), "item 4"),
+                       (dict(layer_pattern=("mamba",), ssm_state_dim=16), "item 5"),
+                       (dict(layer_pattern=("mamba", "mamba", "shared_attn"),
+                             ssm_state_dim=16, shared_attn_period=2), "item 5"),
+                       (dict(layer_pattern=("mlstm", "slstm")), "item 5"),
+                       (dict(num_codebooks=2), "item 3")):
+        with pytest.raises(ValueError, match=item):
+            Model(base.replace(**over), device="cpu").init(0)
+    # softcaps and qk-norm are ported
+    Model(base.replace(attn_softcap=50.0, final_softcap=30.0, qk_norm=True),
+          device="cpu").init(0)
+
+
+@pytest.mark.parametrize("arch", sorted(set(REFUSED) - {"musicgen-large"}))
+def test_serve_and_train_cli_exit_with_the_refusal(arch):
+    for main in (serve.main, train.main):
+        with pytest.raises(SystemExit) as exc:
+            main(["--arch", arch, "--reduced", "--device", "cpu"])
+        assert REFUSED[arch] in str(exc.value.code), exc.value.code
+
+
+def test_serve_cli_refusal_is_no_traceback():
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma2-9b", "--reduced", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 1, proc
+    assert "Traceback" not in proc.stderr, proc.stderr
+    assert REFUSED["gemma2-9b"] in proc.stderr, proc.stderr
+
+
+def test_serve_cli_serves_musicgen_single_codebook(capsys, one_torch_thread):
+    """As the reference's launcher: the note, then a served run of the
+    single-codebook variant (MHA, head dim 32 reduced) by tree."""
+    serve.main(["--arch", "musicgen-large", "--reduced", "--device", "cpu",
+                "--tree", "--temperature", "0.7", "--requests", "2",
+                "--prompt-len", "8", "--max-new", "8"])
+    out = capsys.readouterr().out
+    assert "note: serving single-codebook variant of musicgen-large-reduced" in out
+    assert "arch=musicgen-large-reduced draft=musicgen-large-reduced-drafter" in out
+    assert "tree SD: tau=" in out and "kernel launches:" in out
+    # the launcher's own config: K 1, everything else the arch's
+    cfg = serve.serving_config("musicgen-large", True)
+    assert cfg.num_codebooks == 1
+    assert cfg == tcfgs.reduced(tcfgs.get_config("musicgen-large")).replace(
+        num_codebooks=1)
+    with pytest.raises(ValueError, match=REFUSED["musicgen-large"]):
+        Model(tcfgs.get_config("musicgen-large"), device="cpu").init(0)

@@ -83,9 +83,9 @@ def test_decode_attention_equals_flash_decode_and_output_projection():
     q/k/v after insertion: ``_project_qkv``, the new entry written into the
     cache, the validity mask, ``ops.flash_decode_attention`` and ``wo``
     (the counterpart of the reference's test_kernels.py)."""
-    cfg = ModelConfig(name="x", num_layers=1, d_model=64, num_heads=4,
-                      num_kv_heads=2, d_ff=64, vocab_size=32, head_dim=64,
-                      dtype="float32")
+    cfg = ModelConfig(name="x", arch_type="dense", num_layers=1, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=32,
+                      head_dim=64, dtype="float32")
     gen = torch.Generator().manual_seed(0)
     params = {n: dense_param(gen, i, o, torch.float32, "cpu")
               for n, i, o in (("wq", 64, 256), ("wk", 64, 128),
