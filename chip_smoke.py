@@ -60,18 +60,24 @@ Phases, each printing one JSON line and then one line of its seconds:
      float32: tree and chain tokens must equal the quantized target's
      greedy tokens;
  12. flash decode (run after phase 4, on its models): the kernel against
-     its plain version within 1e-5 of the output's scale at the decode
-     shapes of the pair (B 4, Hkv 32 and 8, G 1, hd 128, S of the chain
-     cache, 1024 and 4096, bf16 and float32, K/V through an int8 cache),
-     of the pipeline configs (hd 32 G 3, hd 16 G 2) and of the reference's
-     kernel benchmark (Hkv 4, G 2, S 1024, float32) and of Yi-9B's decode
-     (Hkv 4, G 8, S 1024, bf16 and float32), with softcap, ragged
-     S, empty ring slots and a fully masked row; a copy of the kernel with
-     a bf16 accumulator must fail that tolerance; the port's decode
-     attention at full width (target layers 0 and 31, also with an int8
-     cache, drafter layers 0 and 3) against the route through
-     ``ops.flash_decode_attention``, whose launches are counted; its times
-     beside the bound, the plain version's and scaled_dot_product_attention's.
+     its plain version within 1e-5 of the output's scale, on the tensor
+     cores (bf16 at hd 32-256) or the CUDA cores (fp32, hd 16), at the
+     decode shapes of the pair (B 4, Hkv 32 and 8, G 1, hd 128, S of the
+     chain cache, 1024 and 4096, bf16 and float32, K/V through an int8
+     cache), of the pipeline configs (hd 32 G 3, hd 16 G 2) and of the
+     reference's kernel benchmark (Hkv 4, G 2, S 1024, float32), of Yi-9B's
+     decode (Hkv 4, G 8, S 1024 to 16384, bf16 and float32), Phi-4-mini's
+     (Hkv 8, G 3, S 4096) and Chameleon-34B's (Hkv 8, G 8), with softcap,
+     ragged S, empty ring slots, a fully masked row and G 17 (two row
+     tiles); a second input set run twice must give equal outputs; a copy
+     of the kernel with a bf16 accumulator (CUDA cores) and one that drops
+     p's lo term (tensor cores) must each fail that tolerance on every case
+     whose output it changes; the port's
+     decode attention at full width (target layers 0 and 31, also with an
+     int8 cache, drafter layers 0 and 3) against the route through
+     ``ops.flash_decode_attention``, whose launches are counted; its times,
+     with each shape's splits, cluster and route, beside
+     the bound, the plain version's and scaled_dot_product_attention's.
      No serving phase launches it, as in the reference;
  13. the paper's pipeline (``repro_torch.experiments.run_pipeline``) at the
      reference's --quick sizes: pretraining, chat-SFT, datagen, KLD/TVD/
@@ -168,10 +174,12 @@ card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
 non-zero exit code and no result line.
 """
+import atexit
 import bisect
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -373,6 +381,7 @@ def phase1_device_and_build():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    start_kernel_copies()        # phase 12's controls, built alongside
     logs = build.build_all(sorted({Path(src).stem
                                    for _, src, _ in KERNEL_ROUTES.values()}))
     ptxas = {name: ptxas_report(log) for name, log in logs.items()}
@@ -1588,8 +1597,11 @@ def phase11_quant_greedy_exactness():
 
 # kernel vs plain version, relative to the output's scale (max |plain|):
 # both widen K/V to fp32 and sum fp32 products, so they differ only in the
-# order of the sums (at most 1.1e-6 of scale on an H100); a copy of the
-# kernel whose accumulator is rounded to bf16 is off by 1.8e-3 or more
+# order of the sums and, on the tensor cores, in p's 16 bits (hi + lo
+# bf16 terms): at most 2.3e-6 of scale on the CUDA cores and 2.5e-6 on the
+# tensor cores on an H100; a copy whose accumulator is rounded to bf16
+# (CUDA cores) or whose p keeps only its hi term (tensor cores) is off by
+# about 1e-3
 FD_TOL = 1e-5
 # the port's decode attention (bf16 scores, probabilities and output)
 # against the kernel route (fp32 inside, its output rounded to bf16 before
@@ -1598,6 +1610,14 @@ FD_TOL = 1e-5
 FD_MODEL_TOL = 2e-2
 FD_CHAIN_S = 128 + 64 + 3 + 2    # chain serving cache length of phase 4
 FD_ACC_LINE = "acc[i][e] = fmaf(p[u], to_float(vt[e]), acc[i][e]);"
+FD_LO_LINE = "pl[i] = pack_bf16(p0 - h0, p1 - h1);"
+# the negative control of each route: a copy of the kernel with one line
+# replaced, which must fail FD_TOL on every case whose output it changes
+FD_COPIES = {
+    "simt": (FD_ACC_LINE, "acc[i][e] = __bfloat162float(__float2bfloat16("
+                          "fmaf(p[u], to_float(vt[e]), acc[i][e])));"),
+    "mma": (FD_LO_LINE, "pl[i] = 0u;"),
+}
 
 
 def decode_inputs(gen, B, Hkv, G, hd, S, dtype, kv="float", masked_row=False):
@@ -1632,75 +1652,140 @@ def sdpa_decode(q, k, v, mask):
     return out.reshape(B, Hkv, G, hd)
 
 
+BF16, F32 = torch.bfloat16, torch.float32
 FD_CASES = [  # (label, B, Hkv, G, hd, S, dtype, softcap, kv, masked_row)
-    ("bench", 4, 4, 2, 128, 1024, torch.float32, None, "float", False),
+    ("bench", 4, 4, 2, 128, 1024, F32, None, "float", False),
     *[(f"{who}-S{S}", 4, hkv, 1, 128, S, dt, None, "float", False)
       for who, hkv in (("target", 32), ("drafter", 8))
       for S in (FD_CHAIN_S, 1024, 4096)
-      for dt in (torch.bfloat16, torch.float32)],
-    ("target-int8kv", 4, 32, 1, 128, FD_CHAIN_S, torch.bfloat16, None, "int8", False),
-    ("drafter-int8kv", 4, 8, 1, 128, 1024, torch.bfloat16, None, "int8", False),
-    ("pipeline-target", 4, 2, 3, 32, FD_CHAIN_S, torch.bfloat16, None, "float", False),
-    ("pipeline-target", 4, 2, 3, 32, FD_CHAIN_S, torch.float32, None, "float", False),
-    ("pipeline-drafter", 4, 2, 2, 16, FD_CHAIN_S, torch.bfloat16, None, "float", False),
-    ("pipeline-drafter", 4, 2, 2, 16, FD_CHAIN_S, torch.float32, None, "float", False),
-    ("hd64-G3", 2, 4, 3, 64, 1024, torch.bfloat16, None, "float", False),
-    ("hd256", 2, 2, 2, 256, 512, torch.float32, None, "float", False),
-    ("G5", 2, 3, 5, 64, 201, torch.float32, None, "float", False),
-    ("softcap", 4, 32, 1, 128, FD_CHAIN_S, torch.bfloat16, 50.0, "float", False),
-    ("ragged", 4, 32, 1, 128, 201, torch.bfloat16, None, "float", False),
-    ("fully-masked-row", 4, 8, 1, 128, 1024, torch.bfloat16, None, "float", True),
-    ("S1", 1, 2, 1, 128, 1, torch.float32, None, "float", False),
-    # Yi-9B's decode (32 heads on 4 KV heads: G 8)
+      for dt in (BF16, F32)],
+    ("target-int8kv", 4, 32, 1, 128, FD_CHAIN_S, BF16, None, "int8", False),
+    ("drafter-int8kv", 4, 8, 1, 128, 1024, BF16, None, "int8", False),
+    ("pipeline-target", 4, 2, 3, 32, FD_CHAIN_S, BF16, None, "float", False),
+    ("pipeline-target", 4, 2, 3, 32, FD_CHAIN_S, F32, None, "float", False),
+    ("pipeline-drafter", 4, 2, 2, 16, FD_CHAIN_S, BF16, None, "float", False),
+    ("pipeline-drafter", 4, 2, 2, 16, FD_CHAIN_S, F32, None, "float", False),
+    ("pipeline-drafter-S4096", 4, 2, 2, 16, 4096, BF16, None, "float", False),
+    ("hd64-G3", 2, 4, 3, 64, 1024, BF16, None, "float", False),
+    ("hd256", 2, 2, 2, 256, 512, F32, None, "float", False),
+    ("hd256", 2, 2, 2, 256, 512, BF16, None, "float", False),
+    ("G5", 2, 3, 5, 64, 201, F32, None, "float", False),
+    *[("G17", 2, 3, 17, 64, 201, dt, None, "float", False) for dt in (BF16, F32)],
+    ("softcap", 4, 32, 1, 128, FD_CHAIN_S, BF16, 50.0, "float", False),
+    ("ragged", 4, 32, 1, 128, 201, BF16, None, "float", False),
+    ("fully-masked-row", 4, 8, 1, 128, 1024, BF16, None, "float", True),
+    ("S1", 1, 2, 1, 128, 1, F32, None, "float", False),
+    # Yi-9B's decode (32 heads on 4 KV heads: G 8), up to a 16K cache
     *[("yi-S1024", 4, 4, 8, 128, 1024, dt, None, "float", False)
-      for dt in (torch.bfloat16, torch.float32)],
+      for dt in (BF16, F32)],
+    ("yi-S16384", 4, 4, 8, 128, 16384, BF16, None, "float", False),
+    ("yi-S16381", 4, 4, 8, 128, 16381, BF16, None, "float", False),
+    ("yi-softcap", 4, 4, 8, 128, 1024, BF16, 50.0, "float", False),
+    ("yi-fully-masked-row", 4, 4, 8, 128, 1024, BF16, None, "float", True),
+    ("yi-drafter-S1024", 4, 4, 2, 128, 1024, BF16, None, "float", False),
+    # Phi-4-mini and Minitron-4B (24 heads on 8: G 3), Chameleon-34B (64
+    # heads on 8: G 8)
+    ("g3-S4096", 4, 8, 3, 128, 4096, BF16, None, "float", False),
+    ("chameleon-S1024", 4, 8, 8, 128, 1024, BF16, None, "float", False),
 ]
+
+
+def fd_plan(B, Hkv, G, hd, S, dtype):
+    """The launch plan of a case: its route, chunk, splits (the cluster's
+    size), row tiles, and how many such clusters the card holds at once."""
+    from repro_torch.kernels import flash_decode as fk
+    chunk, splits = fk.device_plan(B, Hkv, G, hd, S, dtype, 0)
+    return {"route": fk.route(hd, dtype), "chunk": chunk, "splits": splits,
+            "cluster": splits, "row_tiles": fk.row_tiles(G),
+            "resident_clusters": fk._max_clusters(
+                0, min(G, fk.ROW_TILE), hd, fk._DTYPE_CODES[dtype], splits)}
 
 
 def check_decode_cases():
     """Every case of FD_CASES through the kernel (``kernels.flash_decode``,
-    not counted) against the plain version; returns the records."""
+    not counted) against the plain version; then a second input set of
+    every case run twice, which must give equal outputs (every combine runs
+    in a fixed order). Returns the records and the kernel's outputs."""
     from repro_torch.kernels import flash_decode as fk
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(12)
-    out = []
+    again = torch.Generator(device="cuda").manual_seed(14)
+    records, outs = [], []
     for label, B, Hkv, G, hd, S, dtype, cap, kv, masked in FD_CASES:
         q, k, v, mask = decode_inputs(gen, B, Hkv, G, hd, S, dtype, kv, masked)
-        got = fk.flash_decode(q, k, v, mask, softcap=cap)
         want = ref.ref_flash_decode(q, k, v, mask, softcap=cap)
+        second = decode_inputs(again, B, Hkv, G, hd, S, dtype, kv, masked)
+        got = fk.flash_decode(q, k, v, mask, softcap=cap)
+        one = fk.flash_decode(*second, softcap=cap)
+        two = fk.flash_decode(*second, softcap=cap)
         torch.cuda.synchronize()
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
-        out.append({"case": label, "B": B, "Hkv": Hkv, "G": G, "hd": hd, "S": S,
-                    "dtype": str(dtype).split(".")[-1], "softcap": cap, "kv": kv,
-                    "fully_masked_row": masked, "splits": fk.plan(
-                        B, Hkv, G, hd, S, q.element_size(),
-                        fk._sm_count(0))[1],
-                    "max_abs_err": err, "rel_err": err / scale,
-                    "ok": bool(torch.isfinite(got).all()) and err <= FD_TOL * scale})
-    return out
+        records.append({"case": label, "B": B, "Hkv": Hkv, "G": G, "hd": hd,
+                        "S": S, "dtype": str(dtype).split(".")[-1],
+                        "softcap": cap, "kv": kv, "fully_masked_row": masked,
+                        **fd_plan(B, Hkv, G, hd, S, dtype),
+                        "max_abs_err": err, "rel_err": err / scale,
+                        "repeat_equal": bool(torch.equal(one, two)),
+                        "ok": bool(torch.isfinite(got).all())
+                        and err <= FD_TOL * scale})
+        outs.append(got)
+        del q, k, v, mask, want, second
+    return records, outs
 
 
-def bf16_accumulator_copy():
-    """A copy of the kernel that rounds its accumulator to bf16 after every
-    product, built beside the real one: the tolerance must see it."""
+FD_COPY_BUILDS = {}   # route -> (library, nvcc process or None), phase 1
+
+
+def start_kernel_copies():
+    """Start building the negative controls of FD_COPIES (text substitution
+    into ``build/kernels``, one nvcc each, each library named by a hash of
+    its text, so a later run reuses it), beside phase 1's builds."""
     from repro_torch.kernels import build
     src = (ROOT / "src/repro_torch/kernels/csrc/flash_decode.cu").read_text()
-    assert src.count(FD_ACC_LINE) == 1, "the accumulator line moved"
-    src = src.replace(FD_ACC_LINE, "acc[i][e] = __bfloat162float(__float2bfloat16("
-                      "fmaf(p[u], to_float(vt[e]), acc[i][e])));")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = build.BUILD_DIR / "flash_decode_bf16_acc.cu"
-    so = build.BUILD_DIR / "libflash_decode_bf16_acc.so"
-    cu.write_text(src)
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
-                   check=True, capture_output=True, timeout=build.BUILD_TIMEOUT_S)
+    for via, (line, copy) in FD_COPIES.items():
+        assert src.count(line) == 1, ("the copied line moved", line)
+        text = src.replace(line, copy)
+        tag = hashlib.sha256(text.encode()).hexdigest()[:16]
+        so = build.BUILD_DIR / f"libflash_decode_{via}_control-{tag}.so"
+        if so.exists():
+            FD_COPY_BUILDS[via] = (so, None)
+            continue
+        cu = build.BUILD_DIR / f"flash_decode_{via}_control-{tag}.cu"
+        cu.write_text(text)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        FD_COPY_BUILDS[via] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(tmp), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+
+@atexit.register
+def stop_kernel_copies():
+    for _, proc in FD_COPY_BUILDS.values():
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def kernel_copies():
+    """Each route's C entry point of its negative-control copy, once its
+    build (started in phase 1, or here) has finished."""
     import ctypes
-    fn = ctypes.CDLL(str(so)).flash_decode_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_decode as fk
+    if not FD_COPY_BUILDS:
+        start_kernel_copies()
+    fns = {}
+    for via, (so, proc) in FD_COPY_BUILDS.items():
+        if proc is not None:
+            log, _ = proc.communicate(timeout=build.BUILD_TIMEOUT_S)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            assert proc.returncode == 0, log
+            os.replace(tmp, so)
+            FD_COPY_BUILDS[via] = (so, None)
+        fns[via] = fk.typed_launch(ctypes.CDLL(str(so)).flash_decode_launch)
+    return fns
 
 
 def model_decode_check(models):
@@ -1784,26 +1869,56 @@ def model_decode_check(models):
     return records
 
 
+FD_TIMING = (  # (label, B, Hkv, G, S, dtype), hd 128
+    ("target-S1024", 4, 32, 1, 1024, BF16), ("target-S4096", 4, 32, 1, 4096, BF16),
+    ("drafter-S1024", 4, 8, 1, 1024, BF16), ("yi-S1024", 4, 4, 8, 1024, BF16),
+    ("yi-S4096", 4, 4, 8, 4096, BF16), ("yi-S16384", 4, 4, 8, 16384, BF16),
+    ("g3-S4096", 4, 8, 3, 4096, BF16), ("bench", 4, 4, 2, 1024, F32))
+
+
 def phase12_flash_decode(models, smi):
     """flash_decode against its plain version at every decode shape of the
-    pair and of the pipeline configs; a copy with a bf16 accumulator must
-    fail the same tolerance; the full-width decode-attention check through
+    pair, of the pipeline configs and of the registry's GQA targets, a
+    second input set run twice for equal outputs; each route's
+    negative-control copy must fail the same tolerance on every case whose
+    output it changes; the full-width decode-attention check through
     ``ops.flash_decode_attention`` (the launches counted); device times
     beside the bound, the plain version's and SDPA's."""
     from unittest import mock
     from repro_torch.kernels import flash_decode as fk
     from repro_torch.kernels import ops, ref
-    cases = check_decode_cases()
-    bad = [c for c in cases if not c["ok"]]
+    cases, outs = check_decode_cases()
+    bad = [c for c in cases if not (c["ok"] and c["repeat_equal"])]
     if bad:
         emit({"phase": 12, "cases": cases})
-        raise AssertionError(f"flash_decode disagrees with its plain version: {bad}")
+        raise AssertionError(f"flash_decode disagrees with its plain version "
+                             f"or with itself: {bad}")
 
-    copy_fn = bf16_accumulator_copy()
-    with mock.patch.object(fk, "_launcher", lambda: copy_fn):
-        copy = check_decode_cases()
-    assert not any(c["ok"] for c in copy), ("the tolerance passes a kernel "
-                                            "with a bf16 accumulator", copy)
+    # a copy acts on a case where its output differs from the kernel's
+    # (the kernel is bit for bit repeatable); it must change some case of
+    # its own route, none of the other's, and fail every case it changes
+    controls = {}
+    for via, fn in kernel_copies().items():
+        with mock.patch.object(fk, "_launcher", lambda fn=fn: fn):
+            copied, copy_outs = check_decode_cases()
+        acted = [c for c, a, b in zip(copied, copy_outs, outs)
+                 if not torch.equal(a, b)]
+        controls[via] = {"line": FD_COPIES[via][0], "cases": len(acted),
+                         "routes": sorted({c["route"] for c in acted}),
+                         "passed": [c["case"] for c in acted if c["ok"]],
+                         "min_rel_err": min((c["rel_err"] for c in acted),
+                                            default=None)}
+        assert controls[via]["routes"] == [via] and not controls[via]["passed"], (
+            "the tolerance passes a broken copy of the kernel", via, controls[via])
+        del copy_outs
+    del outs
+
+    # clusters of 1-8 blocks the card holds at once, for the instances
+    # of hd 128 and G 8 (the plan keeps a grid within one such wave)
+    occupancy = {f"{fk.route(128, dt)}/{str(dt).split('.')[-1]}": {
+        s: fk._max_clusters(0, 8, 128, fk._DTYPE_CODES[dt], s)
+        for s in range(1, fk.MAX_SPLITS + 1)}
+        for dt in (BF16, F32)}
 
     ops.reset_launches()
     model_checks = model_decode_check(models)
@@ -1811,15 +1926,11 @@ def phase12_flash_decode(models, smi):
     assert launches == {**{n: 0 for n in launches}, "flash_decode": len(model_checks)}, \
         launches
 
-    # device times at the decode shapes (bf16, one position, ring masks
-    # without empty rows), rotating over enough input sets to exceed the L2
+    # device times at the decode shapes (one position, ring masks without
+    # empty rows), rotating over enough input sets to exceed the L2
     gen = torch.Generator(device="cuda").manual_seed(13)
     timing, lib_err = {}, {}
-    for label, B, Hkv, G, S, dtype in (("target-S1024", 4, 32, 1, 1024, torch.bfloat16),
-                                       ("target-S4096", 4, 32, 1, 4096, torch.bfloat16),
-                                       ("drafter-S1024", 4, 8, 1, 1024, torch.bfloat16),
-                                       ("yi-S1024", 4, 4, 8, 1024, torch.bfloat16),
-                                       ("bench", 4, 4, 2, 1024, torch.float32)):
+    for label, B, Hkv, G, S, dtype in FD_TIMING:
         one = decode_inputs(gen, B, Hkv, G, 128, S, dtype)
         set_bytes = sum(t.numel() * t.element_size() for t in one)
         sets = [one] + [decode_inputs(gen, B, Hkv, G, 128, S, dtype)
@@ -1843,28 +1954,27 @@ def phase12_flash_decode(models, smi):
         q, k, v, mask = one       # one decode row: a tree of one node
         bound_ms, bound_by = tree_bound_ms(q[:, :, None], k, v, mask)
         timing[label] = {"B": B, "Hkv": Hkv, "G": G, "hd": 128, "S": S,
-                         "dtype": str(dtype).split(".")[-1], "input_sets": len(sets),
-                         "splits": fk.plan(B, Hkv, G, 128, S, one[0].element_size(),
-                                           fk._sm_count(0))[1],
-                         "device_ms": dev, "kernel_eager_call_ms": eager,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
+                         "dtype": str(dtype).split(".")[-1],
+                         **fd_plan(B, Hkv, G, 128, S, dtype),
+                         "input_sets": len(sets), "device_ms": dev,
+                         "kernel_eager_call_ms": eager, "bound_ms": bound_ms,
+                         "bound_by": bound_by,
+                         "share_of_bound": bound_ms / dev["kernel"]}
         del sets, one
     emit({"phase": 12, "cases": cases, "tolerance_rel": FD_TOL,
-          "worst_rel_err": max(c["rel_err"] for c in cases),
-          "bf16_accumulator_copy": {
-              "rel_err": {f"{c['case']}/{c['dtype']}/S{c['S']}": c["rel_err"]
-                          for c in copy},
-              "fails_tolerance": sum(not c["ok"] for c in copy), "of": len(copy)},
+          "worst_rel_err": {via: max(c["rel_err"] for c in cases
+                                     if c["route"] == via)
+                            for via in FD_COPIES},
+          "negative_controls": controls, "resident_clusters_hd128_G8": occupancy,
           "model_checks": model_checks, "launches": launches,
           "library_vs_plain": lib_err,
           "timing_note": "device ms per call, CUDA graph of 200 calls, q/k/v "
-                         "bf16 (bench: fp32), hd 128, G 1 (bench: G 2, "
-                         "yi: G 8)",
+                         "bf16 (bench: fp32), hd 128",
           "timing": timing, "nvidia_smi": smi})
-    torch.cuda.empty_cache()
     t = timing["target-S1024"]
-    err = next(c["max_abs_err"] for c in cases
-               if c["case"] == "target-S1024" and c["dtype"] == "bfloat16")
+    err = next(c["max_abs_err"] for c in cases if c["case"] == "target-S1024"
+               and c["dtype"] == "bfloat16")
+    torch.cuda.empty_cache()
     return launches["flash_decode"], {
         "flash_decode": {"max_abs_err": err, "ms": t["device_ms"]["kernel"],
                          "plain_ms": t["device_ms"]["plain"],

@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.configs import ARCHS
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_decode as fk
 from repro_torch.kernels import ops
@@ -38,10 +39,11 @@ def _port(q, k, v, mask, softcap=None, dtype=torch.float32):
     return tref.ref_flash_decode(*t, torch.from_numpy(mask), softcap).numpy()
 
 
-# every hd in {16, 32, 64, 128} with every G in {1, 2, 3}, at S the Pallas
-# kernel accepts (S % min(128, S) == 0)
+# every hd in {16, 32, 64, 128} with every G in {1, 2, 3}, and G 8 (Yi-9B,
+# Chameleon-34B) at hd 128 and 64, at S the Pallas kernel accepts
+# (S % min(128, S) == 0)
 SWEEP = [(hd, G, S) for hd, S in ((16, 64), (32, 256), (64, 128), (128, 384))
-         for G in (1, 2, 3)]
+         for G in (1, 2, 3)] + [(128, 8, 384), (64, 8, 128)]
 
 
 @pytest.mark.parametrize("hd,G,S", SWEEP)
@@ -133,7 +135,7 @@ def test_wrapper_sends_cpu_tensors_to_plain_version_uncounted():
 
 
 @pytest.mark.parametrize("case", ["cpu", "hd48", "dtype", "mask", "layout",
-                                  "q_rank"])
+                                  "q_rank", "empty_cache"])
 def test_kernel_wrapper_rejects_what_it_cannot_launch(case):
     q, k, v, mask = (torch.from_numpy(a) for a in _inputs(3, 1, 2, 1, 64, 40))
     if case == "hd48":
@@ -146,27 +148,71 @@ def test_kernel_wrapper_rejects_what_it_cannot_launch(case):
         k = k.transpose(0, 1).contiguous()
     elif case == "q_rank":
         q = q[:, :, None]
+    elif case == "empty_cache":
+        k, v, mask = k[:, :0], v[:, :0], mask[:, :0]
     # every case fails the checks before any build or launch: the kernel
     # computes nothing on the CPU and never quietly takes other inputs
     with pytest.raises(ValueError):
         fk.flash_decode(q, k, v, mask)
 
 
+# clusters of s blocks the card holds at once: the counts an H100 gave for
+# the instances at hd 128 and G 8, one block an SM (chip_smoke.py phase 12
+# prints them), and a card of 132 SMs at two blocks an SM without any
+# placement loss
+H100_HD128 = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+CLUSTER_MODELS = {"h100-hd128": H100_HD128.__getitem__,
+                  "two-an-sm": lambda s: 264 // s}
+
+
+@pytest.mark.parametrize("model", list(CLUSTER_MODELS))
 @pytest.mark.parametrize("B,Hkv,G,hd,S,itemsize", [
     (4, 32, 1, 128, 197, 2), (4, 8, 1, 128, 1024, 2), (4, 32, 1, 128, 4096, 2),
     (4, 4, 2, 128, 1024, 4), (2, 2, 3, 32, 1, 2), (1, 1, 5, 16, 7, 4),
-    (4, 2, 2, 16, 300, 2), (4, 2, 3, 256, 4096, 4), (1, 1, 1, 128, 40000, 2)])
-def test_split_plan_covers_every_slot_once(B, Hkv, G, hd, S, itemsize):
-    """The split plan tiles [0, S) in whole steps of the block's loop, no
-    split empty, and gives the grid at least half of BLOCKS_PER_SM blocks
-    per SM where S allows (rounding the chunk up to whole steps may drop
-    some splits)."""
-    chunk, splits = fk.plan(B, Hkv, G, hd, S, itemsize, 132)
-    lanes = min(32, hd * itemsize // 16)
-    step = fk.THREADS // lanes * fk.UNROLL
-    assert chunk % step == 0 and chunk >= step
+    (4, 2, 2, 16, 300, 2), (4, 2, 3, 256, 4096, 4), (1, 1, 1, 128, 40000, 2),
+    (4, 4, 8, 128, 1024, 2), (4, 4, 8, 128, 16384, 2), (4, 4, 8, 128, 16381, 4),
+    (4, 8, 3, 128, 4096, 2), (4, 8, 8, 128, 1024, 2), (2, 3, 17, 64, 201, 2),
+    (2, 2, 16, 256, 100, 4), (4, 8, 2, 256, 8192, 2)])
+def test_split_plan_covers_every_slot_once(B, Hkv, G, hd, S, itemsize, model):
+    """The split plan tiles [0, S) in whole warp chunks, every slot once and
+    no split empty, with every split of a (batch, kv head) inside one
+    cluster of at most MAX_SPLITS; G <= 16 is one row tile. The splits are
+    the most that keep one block an SM and every cluster resident at once:
+    one more would break either, or leave a warp without a chunk."""
+    clusters = CLUSTER_MODELS[model]
+    chunk, splits = fk.plan(B, Hkv, G, hd, S, itemsize, 132, clusters)
+    cs = fk.chunk_slots(hd, itemsize)
+    step = fk.warps(hd, itemsize) * cs       # one chunk for every warp
+    assert chunk % cs == 0 and chunk >= min(step, -(-S // cs) * cs)
     assert splits == -(-S // chunk) and (splits - 1) * chunk < S
-    blocks = B * Hkv * -(-G // fk.rows_per_block(G)) * splits
-    assert splits == 1 or blocks <= fk.BLOCKS_PER_SM * 132 + B * Hkv * G
-    if S >= 2 * step * fk.BLOCKS_PER_SM * 132:
-        assert 2 * blocks >= fk.BLOCKS_PER_SM * 132
+    assert 1 <= splits <= fk.MAX_SPLITS
+    tiles = fk.row_tiles(G)
+    assert tiles == (1 if G <= fk.ROW_TILE else -(-G // fk.ROW_TILE))
+    assert fk.rows_per_block(G) == min(G, fk.ROW_TILE)
+    pairs = B * Hkv * tiles
+    fits = lambda s: pairs * s <= 132 and pairs <= clusters(s)  # noqa: E731
+    assert splits == 1 or fits(splits)
+    more = splits + 1          # would break the cluster size, a limit of
+    assert (more > fk.MAX_SPLITS or not fits(more)     # the card, or leave
+            or more > S // step)                       # a warp without a chunk
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_registry_decode_shapes_take_one_row_tile(arch):
+    """At every G of the registry (1, 2, 3, 6, 8) a (batch, kv head) is one
+    row tile, bf16 takes the tensor cores; head dims the kernel lacks
+    (zamba2's 112, xlstm's 512) are refused before any launch."""
+    cfg = ARCHS[arch]
+    G, hd = cfg.q_per_kv, cfg.head_dim_
+    if hd not in fk.HEAD_DIMS:
+        q, k, v, mask = (torch.from_numpy(a) for a in _inputs(1, 1, 1, G, hd, 8))
+        with pytest.raises(ValueError, match="head dim"):
+            fk.flash_decode(q, k, v, mask)
+        return
+    assert fk.row_tiles(G) == 1 and fk.rows_per_block(G) == G
+    assert fk.route(hd, torch.bfloat16) == "mma"
+    assert fk.route(hd, torch.float32) == "simt"
+    for S in (1024, 16384):
+        chunk, splits = fk.plan(4, cfg.num_kv_heads, G, hd, S, 2, 132,
+                                lambda s: 264 // s)
+        assert splits <= fk.MAX_SPLITS and (splits - 1) * chunk < S <= splits * chunk
