@@ -11,10 +11,16 @@ Phases, each printing one JSON line and then one line of its seconds:
      null-page columns, rows 2-7 fully masked and finite), the served
      archs' shapes (Yi-9B's verify at G 8, hd 128, S 201 and 1024, bf16 and
      float32, and its drafter levels at G 2; Chameleon-34B's verify at G 8;
-     MusicGen's verify and drafter levels at hd 64), a second input set run
-     twice for equal outputs, and its time at Llama's and at Yi's verify
-     shape beside its bound, the plain version's and one PyTorch library
-     call's (scaled_dot_product_attention, GQA by the library);
+     MusicGen's verify and drafter levels at hd 64; Gemma-2-9B's verify at
+     hd 256 and its drafter levels at hd 128, G 2, softcap 50, at S 201
+     and on a paged view of 4,352 slots whose first ~250 the window cuts,
+     with null-page columns and a split wholly under the window; the paged
+     views within 1e-5 of the plain version's scale), a second
+     input set run twice for equal outputs, and its time at Llama's, Yi's
+     and Gemma's verify shapes (Gemma's drafter level and paged view too)
+     beside its bound, the plain version's and one PyTorch library call's
+     (scaled_dot_product_attention, GQA by the library, without Gemma's
+     softcap: it has none);
   3. full-width tree-speculative serving: Llama-2-7B-Chat with the 115M
      drafter in bf16, random weights from fixed seeds, 4 requests, prompt
      128, 64 new tokens, tree (2, 2), temperature 0.7; the tree attention
@@ -53,7 +59,8 @@ Phases, each printing one JSON line and then one line of its seconds:
  10. full-width quantized serving: Llama-2-7B-Chat and its drafter drawn in
      float32, AWQ-calibrated on datagen batches of the target, quantized to
      int8 and then to int4 weights, with int8 KV caches; tree (2, 2) and
-     chain (gamma 3) at temperature 0.7, the launch counts asserted (each
+     chain (gamma 3) over 4 x (128 + 32) at temperature 0.7, the launch
+     counts asserted (each
      forward pass of a quantized model launches the kernel 7 * layers + 1
      times);
  11. greedy exactness under int8 and int4 weights with 2 target layers in
@@ -108,17 +115,19 @@ Phases, each printing one JSON line and then one line of its seconds:
      off must give the same tokens, and so must every observability hook
      on (fenced phases included) and off, chain and tree;
  18. the serving CLI's --continuous branch at full width in subprocesses
-     (16 chat-mix requests): tree with the prefix cache, int8 weights on
-     both models and int8 KV and every observability flag (its trace,
-     metrics, flight bundles, torch.profiler trace and printed reports
-     checked), then chain in bf16; each must serve all 16 requests, its
+     (the first 8 chat-mix requests through 4 slots, so that some queue
+     and retired slots are reused): tree with the prefix cache, int8
+     weights on both models and int8 KV and every observability flag (its
+     trace, metrics, flight bundles, torch.profiler trace and printed
+     reports checked), then chain in bf16; each must serve all 8, its
      printed kernel launches checked (44 tree_attention launches a round);
  19. self-speculative serving with draft heads on phase 3's target (after
      phase 16, no drafter model): an EAGLE head (one block with 32 heads,
      d_ff 16384, 302.0M parameters) and Medusa heads (K 4, 67.1M) from
      seeds, each by tree (2, 2) and chain gamma 3 over 4 x (128 + 64) at
-     temperature 0.7, then phase 16's chat-mix stream through the
-     continuous engine by tree with EAGLE heads and the prefix cache;
+     temperature 0.7, then the first 8 requests of phase 16's chat-mix
+     stream through 4 slots of the continuous engine by tree with EAGLE
+     heads and the prefix cache (some requests must queue);
      tree_attention must be launched exactly 32 times per tree round (the
      verify pass only) and never in a chain round, every request must
      finish with its max_new tokens, and the engine must hold no drafter
@@ -128,26 +137,29 @@ Phases, each printing one JSON line and then one line of its seconds:
      layers: EAGLE and Medusa, chain and tree, static and continuous (4
      requests through 2 slots) must give the target's greedy tokens;
  21. head distillation at full width: EAGLE and Medusa heads (float32
-     master weights) take 3 TVD++ steps each against the frozen bf16 target
+     master weights) take 2 TVD++ steps each against the frozen bf16 target
      on 4 x 1024 tokens of its own datagen responses, with finite losses
      and moving parameters; a head checkpoint saved, loaded and served by
      tree; then the training CLI (--reduced --draft-head eagle --save), the
      serving CLI from that checkpoint by tree, and the --continuous --tree
-     --draft-head eagle serving CLI at full width on the chat mix, in
+     --draft-head eagle serving CLI at full width on 8 chat-mix requests
+     through 4 slots (some must queue), in
      subprocesses, their printed launches checked;
  22. observability of the continuous engine at full width (after phase 19,
-     on phase 3's models): phase 16's stream by tree (2, 2) with the
-     prefix cache at temperature 0.7 in three passes: (a) every hook off,
+     on phase 3's models): the first 8 requests of phase 16's stream by
+     tree (2, 2) with the prefix cache at temperature 0.7 in three
+     passes: (a) every hook off,
      (b) tracer, metrics registry with JSONL snapshots, quality telemetry,
      flight recorder and an SLO of TTFT 1 ms that must breach, (c) (b)
      with the fenced draft/verify/commit/prefill phases inside
-     torch_profile; each must finish all 16 requests with 44
+     torch_profile; each must finish all 8 requests with 44
      tree_attention launches a round; the trace must rebuild every TTFT
      within 1 ms, the registry count every committed token, the JSONL,
      Prometheus and breach bundle parse, the phase split sum to the step
      time; a round at 8 decode rows must make one device-to-host copy with
      quality on; prints the hook cost ((a) against (b): tau, tok/s, host
-     and device ms per round), (c)'s phase split with each phase's device
+     and device ms per round; the passes a then b, one profiled window
+     each, b then a), (c)'s phase split with each phase's device
      span (CUDA events) and busy time (the profiler's kernels), the
      roofline attribution at 3350 GB/s, the quality summary and the
      acceptance report;
@@ -158,8 +170,10 @@ Phases, each printing one JSON line and then one line of its seconds:
      64) at temperature 0.7: 48 + 4 * 3 = 60 tree_attention launches a tree
      round (tree_attention at G 8), tau, MBSU with c from param_count,
      tok/s, peak memory, host and device ms per round (torch.profiler);
-     (b) phase 16's chat stream through the continuous engine by tree with
-     the prefix cache, every request finished at 60 launches a round; (c)
+     (b) the first 8 requests of phase 16's chat stream through 4 slots of
+     the continuous engine by tree with the prefix cache (some must
+     queue), every request
+     finished at 60 launches a round; (c)
      greedy exactness with 2 float32 target layers at Yi's width: chain
      and tree, static and continuous (4 requests through 2 slots), equal
      to the target's greedy tokens; (d) the same by tree over 2 x (64 +
@@ -167,8 +181,26 @@ Phases, each printing one JSON line and then one line of its seconds:
      Chameleon-34B (qk-norm, d 8192, 64 heads on 8) at published widths,
      2 + 12 launches a tree round; (e) the serving CLI by tree at full
      width in subprocesses for Yi-9B and MusicGen-large (its single-
-     codebook variant: the note must be printed), launches checked.
-Phase 23 runs after phase 22; phases 10, 11, 13-15, 18 and 21 run before
+     codebook variant: the note must be printed), launches checked;
+ 24. Gemma-2-9B (after phase 23, once Yi is freed): (a) at full width (42
+     layers alternating local_attn and attn, window 4,096, 16 heads on 8
+     KV heads at hd 256, softcaps 50/30, scaled embeddings, V 256000;
+     10.16B parameters) with its drafter (4 layers, d 1024; 0.571B) in
+     bf16 from seeds 0/1, tree (2, 2) and chain gamma 3 over 4 x (128 +
+     64) at temperature 0.7, within the window: 42 + 4 * 3 = 54
+     tree_attention launches a tree round and no other kernel, tau, MBSU
+     with c from param_count, tok/s, peak memory, host and device ms per
+     round; (b) the continuous engine by tree over 4 requests of 4,160
+     seeded tokens + 64 new at t = 0 (8 slots, 16-slot pages, 512-token
+     prefill chunks): every request decodes past position 4,096, launches
+     checked; (c) greedy exactness with 2 float32 target layers (one of
+     each kind) at published widths and the float32 drafter: within the
+     window static and continuous, past it (4,160 tokens) and with
+     long_context (8,256: the global layers window at 8,192) the static
+     chain and tree and the continuous engine by chain and tree, each
+     equal to static AR with the same long_context; (d) the serving CLI
+     by tree at full width, launches checked.
+Phases 23 and 24 run after phase 22; phases 10, 11, 13-15, 18 and 21 run before
 phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
@@ -265,71 +297,132 @@ def tree_inputs(gen, B, Hkv, N, G, hd, S, dtype):
     return q, k, v, mask
 
 
-def paged_tree_inputs(gen, B, Hkv, N, hd, S, dtype, page=16, dev="cuda"):
-    """Tree attention's inputs as ``paged_decode_attention`` builds them
-    for B slots of which only rows 0 and 1 are active: K/V gathered through
-    a page table from a pool whose page 0 (the null page) is zero, row 1
-    sharing row 0's first two pages (a prefix-cache hit), table entries 0
-    past each row's length, and rows 2.. inactive (table all 0, mask all
-    False), as ``masked_page_table`` leaves them."""
-    P = 2 * (S // page) + 1
+GEMMA_WINDOW = 4096              # gemma2_9b's sliding window
+GEMMA_VIEW = 272 * 16            # 4,352 slots: a row 256 slots past it
+GEMMA_SOFTCAP = 50.0
+GEMMA_TREE_DEPTHS = (0, 1, 1, 2, 2, 2, 2)      # tree (2, 2)
+# the paged cases' tolerance, relative to max |plain version|: the kernel
+# and the plain version both compute in fp32 from the same inputs (a
+# wholly masked split given any weight moves the output far more)
+PAGED_TOL_REL = 1e-5
+
+
+def paged_tree_inputs(gen, B, Hkv, N, hd, S, dtype, G=1, lens=None,
+                      window=None, page=16, dev="cuda"):
+    """Tree attention's inputs as ``paged_decode_attention`` builds them:
+    K/V gathered through a page table (pages in random order) from a pool
+    whose page 0, the null page, is zero. Active row b fills ``lens[b]``
+    slots (default: rows 0 and 1 at S - page - 3 and S // 2 + 5), its N
+    tree nodes last; its nodes see the committed prefix and a random subset
+    of the tree region, table entries past it are 0, and row 1 shares row
+    0's first two pages (a prefix-cache hit). Rows past ``len(lens)`` are
+    inactive (table all 0, mask all False), as ``masked_page_table`` leaves
+    them. With ``window``, a node at position p (its row's committed length
+    plus its depth: the tree (2, 2)'s for N 7, else one level's) sees no
+    slot at or below p - window, as a Gemma-2 local layer past its window."""
+    lens = torch.tensor(lens or (S - page - 3, S // 2 + 5), device=dev)
+    A, pages = len(lens), S // page
+    P = A * pages + 1
     kpool = torch.randn((P, page, Hkv, hd), generator=gen, device=dev).to(dtype)
     vpool = torch.randn((P, page, Hkv, hd), generator=gen, device=dev).to(dtype)
     kpool[0], vpool[0] = 0, 0
-    lens = (S - page - 3, S // 2 + 5)
-    table = torch.zeros((B, S // page), dtype=torch.long, device=dev)
-    table[0, : -(-lens[0] // page)] = torch.arange(1, -(-lens[0] // page) + 1)
-    n1 = -(-lens[1] // page)
-    table[1, :2] = table[0, :2]
-    table[1, 2:n1] = torch.arange(P - (n1 - 2), P)
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    table = torch.zeros((B, pages), dtype=torch.long, device=dev)
+    table[:A] = perm.reshape(A, pages)
+    if A > 1:
+        table[1, :2] = table[0, :2]
+    table[:A][torch.arange(pages, device=dev)[None]
+              >= -(-lens[:, None] // page)] = 0
     col = torch.arange(S, device=dev)
-    valid = (table.repeat_interleave(page, 1) != 0)
-    valid[:2] &= col[None] < torch.tensor(lens, device=dev)[:, None]
+    valid = table.repeat_interleave(page, 1) != 0
+    valid[:A] &= col[None] < lens[:, None]
     tree = torch.rand((B, N, S), generator=gen, device=dev) < 0.5
-    for b, L in enumerate(lens):
-        tree[b, :, : L - N] = True          # the committed prefix
+    tree[:A] |= col[None, None] < (lens - N)[:, None, None]  # the prefix
     mask = valid[:, None, :] & tree
-    q = torch.randn((B, Hkv, N, 1, hd), generator=gen, device=dev).to(dtype)
+    if window is not None:
+        depths = torch.tensor(GEMMA_TREE_DEPTHS if N == 7 else (0,) * N,
+                              device=dev)
+        pos = (lens - N)[:, None] + depths[None]             # (A, N)
+        mask[:A] &= col[None, None] > (pos - window)[:, :, None]
+    q = torch.randn((B, Hkv, N, G, hd), generator=gen, device=dev).to(dtype)
     k = kpool[table].reshape(B, S, Hkv, hd)
     v = vpool[table].reshape(B, S, Hkv, hd)
     return q, k, v, mask
 
 
+def masked_splits(mask, chunk):
+    """Splits of ``chunk`` slots in which every node of some row is masked
+    while the row sees some slot (the combine must give them weight 0)."""
+    B, N, S = mask.shape
+    seen = mask.any(1)                                       # (B, S)
+    return sum(int(not seen[b, i:i + chunk].any())
+               for b in range(B) if seen[b].any() for i in range(0, S, chunk))
+
+
 def check_paged_tree_cases(gen):
-    """Tree attention at the continuous path's shapes (B 8, target verify
-    Hkv 32 N 7, drafter levels Hkv 8 N 1/2/4, views of 8, 13 and 19 pages
-    of 16 slots, widths that are not multiples of the split sizes) with
-    rows 2-7 fully masked: within TOL of the plain version, every row
-    finite. At least one shape must split its slots across blocks (the
-    combine then merges fully masked partials)."""
+    """Tree attention on the continuous path's paged views, within
+    PAGED_TOL_REL of the plain version's scale, every row finite. Llama's
+    shapes (B 8, target verify Hkv 32 N 7, drafter levels Hkv 8 N 1/2/4,
+    views of 8, 13 and 19 pages of 16 slots, widths that are not multiples
+    of the split sizes) with rows 2-7 fully masked: at least one shape must
+    split its slots across blocks (the combine then merges fully masked
+    partials). Gemma-2-9B's past its window on 272 pages, softcap 50: the
+    verify pass (Hkv 8, N 7, G 2, hd 256) and the drafter levels (Hkv 4,
+    N 1/2/4, G 2, hd 128) at B 4, and both at B 1, whose plan splits the
+    slots finely enough that a whole split lies under the window: at least
+    one split must be wholly masked there."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import tree_attention as tk
+    bf, f32 = torch.bfloat16, torch.float32
+    llama = [(label, 8, Hkv, N, 1, 128, S, dt, None, None)
+             for label, Hkv, N in (("paged-target", 32, 7),
+                                   ("paged-drafter", 8, 1),
+                                   ("paged-drafter", 8, 2),
+                                   ("paged-drafter", 8, 4))
+             for S in (128, 208, 304) for dt in (bf, f32)]
+    gemma = [(label, B, Hkv, N, 2, hd, GEMMA_VIEW, dt,
+              [GEMMA_VIEW - 1 - 16 * b for b in range(B)], GEMMA_WINDOW)
+             for label, B, Hkv, N, hd, dt in (
+                 ("gemma-verify-paged", 4, 8, 7, 256, bf),
+                 ("gemma-verify-paged", 4, 8, 7, 256, f32),
+                 ("gemma-verify-paged", 1, 8, 7, 256, bf),
+                 ("gemma-verify-paged", 1, 8, 7, 256, f32),
+                 ("gemma-drafter-level-paged", 4, 4, 1, 128, bf),
+                 ("gemma-drafter-level-paged", 4, 4, 2, 128, bf),
+                 ("gemma-drafter-level-paged", 4, 4, 4, 128, bf),
+                 ("gemma-drafter-level-paged", 4, 4, 4, 128, f32),
+                 ("gemma-drafter-level-paged", 1, 4, 4, 128, bf),
+                 ("gemma-drafter-level-paged", 1, 4, 4, 128, f32))]
     results = []
-    for label, Hkv, N in (("paged-target", 32, 7), ("paged-drafter", 8, 1),
-                          ("paged-drafter", 8, 2), ("paged-drafter", 8, 4)):
-        for S in (128, 208, 304):
-            for dtype in (torch.bfloat16, torch.float32):
-                q, k, v, mask = paged_tree_inputs(gen, 8, Hkv, N, 128, S, dtype)
-                got = tk.tree_attention(q, k, v, mask)
-                want = ref.ref_tree_attention(q, k, v, mask)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                masked_finite = bool(torch.isfinite(got[2:]).all())
-                ok = (bool(torch.isfinite(got).all()) and masked_finite
-                      and err <= TOL[dtype])
-                splits = tk.plan(8, Hkv, N, 1, 128, S, q.element_size(),
-                                 tk._sm_count(0))[1]
-                results.append({"case": label, "B": 8, "Hkv": Hkv, "N": N,
-                                "G": 1, "hd": 128, "S": S, "page": 16,
-                                "dtype": str(dtype).split(".")[-1],
-                                "splits": splits, "masked_rows": "2-7",
-                                "masked_rows_finite": masked_finite,
-                                "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
-                if not ok:
-                    emit({"phase": 2, "paged_cases": results})
-                    raise AssertionError(f"tree_attention disagrees with its "
-                                         f"plain version: {results[-1]}")
-    assert any(r["splits"] > 1 for r in results), results
+    for label, B, Hkv, N, G, hd, S, dtype, lens, window in llama + gemma:
+        q, k, v, mask = paged_tree_inputs(gen, B, Hkv, N, hd, S, dtype, G=G,
+                                          lens=lens, window=window)
+        cap = GEMMA_SOFTCAP if window else None
+        got = tk.tree_attention(q, k, v, mask, softcap=cap)
+        want = ref.ref_tree_attention(q, k, v, mask, softcap=cap)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ok = (bool(torch.isfinite(got).all())
+              and err <= PAGED_TOL_REL * scale)
+        chunk, splits = tk.plan(B, Hkv, N, G, hd, S, q.element_size(),
+                                tk._sm_count(0))
+        results.append({"case": label, "B": B, "Hkv": Hkv, "N": N, "G": G,
+                        "hd": hd, "S": S, "page": 16,
+                        "dtype": str(dtype).split(".")[-1], "softcap": cap,
+                        "window": window, "tensor_cores":
+                            tk.on_tensor_cores(hd, q.element_size()),
+                        "chunk": chunk, "splits": splits,
+                        "wholly_masked_splits": masked_splits(mask, chunk),
+                        "max_abs_want": scale, "max_abs_err": err,
+                        "tol": PAGED_TOL_REL * scale, "ok": ok})
+        if not ok:
+            emit({"phase": 2, "paged_cases": results})
+            raise AssertionError(f"tree_attention disagrees with its plain "
+                                 f"version on a paged view: {results[-1]}")
+    assert any(r["splits"] > 1 for r in results[:len(llama)]), results
+    assert any(r["wholly_masked_splits"] > 0
+               for r in results[len(llama):]), results
     return results
 
 
@@ -433,6 +526,12 @@ def phase2_kernels():
         ("chameleon-verify", 4, 8, 7, 8, 128, 201, bf, None),
         ("musicgen-verify", 4, 32, 7, 1, 64, 201, bf, None),
         ("musicgen-drafter-level", 4, 8, 4, 1, 64, 201, bf, None),
+        # Gemma-2-9B (phase 24): the verify pass at hd 256 (16 heads on 8,
+        # G 2) and the drafter levels at hd 128 (8 on 4), softcap 50
+        *[("gemma-verify", 4, 8, 7, 2, 256, 201, dt, GEMMA_SOFTCAP)
+          for dt in (bf, f32)],
+        *[("gemma-drafter-level", 4, 4, N, 2, 128, 201, dt, GEMMA_SOFTCAP)
+          for N, dt in ((1, bf), (2, bf), (4, bf), (4, f32))],
     ]
     results = []
     for label, B, Hkv, N, G, hd, S, dtype, cap in cases:
@@ -463,15 +562,33 @@ def phase2_kernels():
     assert deterministic, "tree_attention differs between two runs"
     paged = check_paged_tree_cases(gen)
 
-    # timing at the main path's shape (Llama's verify, bf16, S 201) and at
-    # Yi-9B's (G 8)
+    # timing at the main path's shape (Llama's verify, bf16, S 201), at
+    # Yi-9B's (G 8) and at Gemma-2-9B's (hd 256 and its drafter's levels,
+    # softcap 50; S 201 and the paged view past the window)
     llama = time_tree(gen, 4, 32, 7, 1, 128, 201)
     yi = time_tree(gen, 4, 4, 7, 8, 128, 201)
+    gemma = {}
+    for name, B, Hkv, N, hd in (("verify", 4, 8, 7, 256),
+                                ("drafter_level", 4, 4, 4, 128)):
+        gemma[f"{name}_S201"] = time_tree(gen, B, Hkv, N, 2, hd, 201,
+                                          softcap=GEMMA_SOFTCAP)
+        gemma[f"{name}_paged4352"] = time_tree(
+            gen, B, Hkv, N, 2, hd, GEMMA_VIEW, softcap=GEMMA_SOFTCAP,
+            iters=50, make=lambda: paged_tree_inputs(
+                gen, B, Hkv, N, hd, GEMMA_VIEW, torch.bfloat16, G=2,
+                lens=[GEMMA_VIEW - 1 - 16 * b for b in range(B)],
+                window=GEMMA_WINDOW))
     emit({"phase": 2, "cases": results, "paged_cases": paged,
           "deterministic": deterministic,
           "timing_shape": "B4 Hkv32 N7 G1 hd128 S201 bf16, 8 input sets",
           **llama, "yi_verify_timing": {
-              "shape": "B4 Hkv4 N7 G8 hd128 S201 bf16, 8 input sets", **yi}})
+              "shape": "B4 Hkv4 N7 G8 hd128 S201 bf16, 8 input sets", **yi},
+          "gemma_timing": {
+              "shapes": "B4 G2 bf16 softcap 50, 8 input sets: verify Hkv8 N7 "
+                        "hd256, drafter level Hkv4 N4 hd128; S 201 (random "
+                        "masks) and the paged view of 4,352 slots past the "
+                        "window; library: SDPA without the softcap (it has "
+                        "none)", **gemma}})
     return {"tree_attention": {"max_abs_err": results[0]["max_abs_err"],
                                "ms": llama["device_ms"]["kernel"],
                                "plain_ms": llama["device_ms"]["plain"],
@@ -486,7 +603,14 @@ def phase2_kernels():
                                    "plain_ms": yi["device_ms"]["plain"],
                                    "bound_ms": yi["bound_ms"],
                                    "bound_by": yi["bound_by"],
-                                   "library_ms": yi["device_ms"]["library"]}}}
+                                   "library_ms": yi["device_ms"]["library"]},
+                               "gemma": {
+                                   k: {"ms": t["device_ms"]["kernel"],
+                                       "plain_ms": t["device_ms"]["plain"],
+                                       "bound_ms": t["bound_ms"],
+                                       "bound_by": t["bound_by"],
+                                       "library_ms": t["device_ms"]["library"]}
+                                   for k, t in gemma.items()}}}
 
 
 def sdpa_tree(q, k, v, mask):
@@ -500,17 +624,21 @@ def sdpa_tree(q, k, v, mask):
     return out.reshape(B, Hkv, G, N, hd).transpose(2, 3)
 
 
-def time_tree(gen, B, Hkv, N, G, hd, S):
+def time_tree(gen, B, Hkv, N, G, hd, S, softcap=None, make=None, iters=200):
     """Device ms of the kernel, its plain version and SDPA at one bf16
     shape (graph replay, in turns kernel, plain, library, kernel), rotating
-    over 8 input sets (more than the 50 MB L2 at the 7B verify shape, as
-    the serving loop finds it); then the time per eager call as the
-    serving loop pays it (host launch cost included), the bound, and
-    SDPA's agreement with the plain version on the rows that see a slot."""
+    over 8 input sets from ``make`` (default: ``tree_inputs``; more than
+    the 50 MB L2 at the 7B verify shape, as the serving loop finds it);
+    then the time per eager call as the serving loop pays it (host launch
+    cost included), the bound, and SDPA's agreement with the plain version
+    on the rows that see a slot. With ``softcap`` the kernel and the plain
+    version apply it; SDPA has none, so it is held to the plain version
+    without it."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import tree_attention as tk
-    sets = [tree_inputs(gen, B, Hkv, N, G, hd, S, torch.bfloat16)
-            for _ in range(8)]
+    make = make or (lambda: tree_inputs(gen, B, Hkv, N, G, hd, S,
+                                        torch.bfloat16))
+    sets = [make() for _ in range(8)]
     want = ref.ref_tree_attention(*sets[0])
     lib = sdpa_tree(*sets[0]).float()
     seen = sets[0][3].any(-1)[:, None, :, None, None].expand_as(want)
@@ -522,10 +650,11 @@ def time_tree(gen, B, Hkv, N, G, hd, S):
     def rotate(fn):
         return lambda: fn(*sets[next(it) % len(sets)])
 
-    fns = {"kernel": tk.tree_attention, "plain": ref.ref_tree_attention,
+    fns = {"kernel": lambda *a: tk.tree_attention(*a, softcap=softcap),
+           "plain": lambda *a: ref.ref_tree_attention(*a, softcap=softcap),
            "library": sdpa_tree}
-    dev = {name: graph_ms(rotate(fn)) for name, fn in fns.items()}
-    dev["kernel_repeat"] = graph_ms(rotate(tk.tree_attention))
+    dev = {name: graph_ms(rotate(fn), iters) for name, fn in fns.items()}
+    dev["kernel_repeat"] = graph_ms(rotate(fns["kernel"]), iters)
     eager = {name: cuda_ms(rotate(fn), iters=200) for name, fn in fns.items()}
     bound_ms, bound_by = tree_bound_ms(*sets[0])
     chunk, splits = tk.plan(B, Hkv, N, G, hd, S, 2, tk._sm_count(0))
@@ -625,7 +754,9 @@ def kernel_breakdown(prof, rounds, wall_ms_per_round):
                             for e in top]}
 
 
-def phase4_chain_serving(models, smi, phase=4):
+def phase4_chain_serving(models, smi, phase=4, ar=True):
+    """Chain serving (gamma 3, temperature 0.7) of 4 x (128 + 64), and with
+    ``ar`` the autoregressive baseline on the same weights."""
     from repro_torch.core.metrics import mbsu
     from repro_torch.core.speculative import SDConfig
     from repro_torch.kernels import ops
@@ -638,8 +769,8 @@ def phase4_chain_serving(models, smi, phase=4):
     results, tau, tok_s = serve.serve_static(target, t_params, draft, d_params,
                                              prompts, 64, sdc)
     chain_launches = dict(ops.LAUNCHES)
-    _, _, ar_tok_s = serve.serve_static(target, t_params, None, None, prompts,
-                                        64, sdc)
+    ar_tok_s = (serve.serve_static(target, t_params, None, None, prompts, 64,
+                                   sdc)[2] if ar else None)
     for r in results:
         assert len(r.tokens) == 64 and ((r.tokens >= 0)
                                         & (r.tokens < target.cfg.vocab_size)).all()
@@ -1120,6 +1251,8 @@ QUANT_SHAPES = {    # (label, K, N) of every quantized matmul of the path
     "drafter": [("wq/wk/wv/wo", 1024, 1024), ("w_gate/w_up", 1024, 2816),
                 ("w_down", 2816, 1024), ("lm_head", 1024, 32000)]}
 QUANT_B, QUANT_P, QUANT_TREE, QUANT_GAMMA = 4, 128, (2, 2), 3   # phase 10
+# the target shapes phase 9 times (the others were cut to pay for phase 24)
+QUANT_TIMED = ("wq/wk/wv/wo", "w_down")
 
 
 def quant_pass_rows(B=QUANT_B, P=QUANT_P, branching=QUANT_TREE, gamma=QUANT_GAMMA):
@@ -1316,7 +1449,8 @@ def phase9_quant_kernels():
     assert rows_ok, "a row's result depends on M"
     assert copy_caught, "the tolerance passes an int4 kernel with bf16 weights"
     timing = {f"int{bits}:{name}": time_quant_shape(gen, K, N, bits)
-              for name, K, N in QUANT_SHAPES["target"] for bits in (8, 4)}
+              for name, K, N in QUANT_SHAPES["target"] for bits in (8, 4)
+              if name in QUANT_TIMED}
     emit({"phase": 9, "cases": n_cases, "all_ok": True, "M": rows,
           "worst_rel_err": {f"int{b}/{d}": e for (b, d), e in worst.items()},
           "worst_rel_err_by_M": worst_m, "tolerance_rel": QUANT_TOL,
@@ -1454,7 +1588,7 @@ def phase10_quant_serving(smi, weights):
     from repro_torch.spectree.tree import TreeSpec
     bits = {"int8": 8, "int4": 4}[weights]
     key = f"quant_matmul_int{bits}"
-    B, P, NEW = QUANT_B, QUANT_P, 64
+    B, P, NEW = QUANT_B, QUANT_P, 32       # cut from 64 (PERF.md)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     models = serve.build_models("llama2-7b-chat", False, "cuda",
@@ -2064,6 +2198,12 @@ def phase15_reduced_tree_cli(smi):
 # ------------------------------------------------ continuous serving (16-17)
 
 CONT_MIX, CONT_N, CONT_RATE = "chat", 16, 4.0     # phase 16's request stream
+# the first SHORT_N requests of that stream serve phases 18, 19, 21, 22 and
+# 23b, cut from 16 to pay for phase 24 (PERF.md lists each cut); at t = 0
+# they would all be admitted before any prompt reaches the prefix cache.
+# Phases 18, 19, 21 and 23b serve them through SHORT_BATCH slots, so that
+# requests queue and retired slots and their pages are reused.
+SHORT_N, SHORT_BATCH = 8, 4
 CONT_ENGINE = dict(max_batch=8, page_size=16, prefill_chunk=32)
 
 
@@ -2095,32 +2235,38 @@ def tree_launches_per_round(target, draft, spec):
 
 
 def continuous_pass(models, sdc, spec, prefix, kv_quant, rate=CONT_RATE,
-                    profile_dir=None, **engine_kw):
-    """One measured pass over the 16-request chat stream arriving at
+                    profile_dir=None, n=CONT_N, warm=True,
+                    max_batch=CONT_ENGINE["max_batch"], **engine_kw):
+    """One measured pass over the first ``n`` of the chat stream arriving at
     ``rate`` requests/s (0: all at t = 0, the engine's own throughput),
     launch counts set to 0 just before it and read just after. ``models``'
     drafter is a drafter model or a head drafter (whose engine must then
     hold no drafter pool). ``engine_kw`` (observability hooks) go to the
     measured pass's engine, which ``profile_dir`` wraps in
-    ``obs.torch_profile``. Returns (summary, engine)."""
+    ``obs.torch_profile``. ``warm`` runs a warm-up on two other requests
+    first (a pass right after another on the same models skips it). With
+    fewer ``max_batch`` slots than requests, some request must queue.
+    Returns (summary, engine)."""
     from repro_torch.draftheads import is_head_drafter
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.obs import torch_profile
     target, t_params, draft, d_params, c = models
     V = target.cfg.vocab_size
-    # warm-up on two other requests, not counted
-    serve.serve_continuous(target, t_params, draft, d_params,
-                           chat_requests(2, 0.0, V, seed=1), sdc, spec,
-                           prefix_cache=prefix, kv_quant=kv_quant, **CONT_ENGINE)
-    reqs = chat_requests(CONT_N, rate, V)
+    if warm:        # on two other requests, not counted
+        serve.serve_continuous(target, t_params, draft, d_params,
+                               chat_requests(2, 0.0, V, seed=1), sdc, spec,
+                               prefix_cache=prefix, kv_quant=kv_quant,
+                               **CONT_ENGINE)
+    reqs = chat_requests(n, rate, V)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     with torch_profile(profile_dir):
         engine, results = serve.serve_continuous(
             target, t_params, draft, d_params, reqs, sdc, spec,
-            prefix_cache=prefix, kv_quant=kv_quant, **CONT_ENGINE, **engine_kw)
+            prefix_cache=prefix, kv_quant=kv_quant,
+            **{**CONT_ENGINE, "max_batch": max_batch}, **engine_kw)
         torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     check_served(results, reqs, V)
@@ -2136,7 +2282,9 @@ def continuous_pass(models, sdc, spec, prefix, kv_quant, rate=CONT_RATE,
     assert summary["tau"] >= 1.0 and math.isfinite(summary["tau"]), summary
     if prefix:
         assert summary["prefix"]["hits"] > 0, summary["prefix"]
-    summary.update(arrival_rate=rate,
+    if n > max_batch:
+        assert summary["max_queue"] >= 1, summary
+    summary.update(arrival_rate=rate, max_batch=max_batch,
                    arrival_span_s=max(r.arrival_time_s for r in reqs),
                    launches=launches, tree_attention_per_round=per_round,
                    num_pages=engine.num_pages, view_slots=engine.pool.max_pages_per_seq
@@ -2201,15 +2349,20 @@ def phase16_continuous_serving(models, smi):
     spec = TreeSpec((2, 2))
     t0 = time.perf_counter()
     out = {}
-    for name, sdc, tree, prefix, rate in (
-            ("tree", SDConfig(gamma=3, temperature=0.7), spec, True, CONT_RATE),
-            ("chain", SDConfig(gamma=3, temperature=0.7), None, False, CONT_RATE),
+    # the passes at t = 0 follow the same path's pass: no warm-up of their own
+    for name, sdc, tree, prefix, rate, warm in (
+            ("tree", SDConfig(gamma=3, temperature=0.7), spec, True, CONT_RATE,
+             True),
+            ("chain", SDConfig(gamma=3, temperature=0.7), None, False,
+             CONT_RATE, True),
             ("tree_int8kv", SDConfig(gamma=3, temperature=0.7, kv_quant=True),
-             spec, True, CONT_RATE),
-            ("tree_rate0", SDConfig(gamma=3, temperature=0.7), spec, True, 0.0),
-            ("chain_rate0", SDConfig(gamma=3, temperature=0.7), None, False, 0.0)):
+             spec, True, CONT_RATE, True),
+            ("tree_rate0", SDConfig(gamma=3, temperature=0.7), spec, True, 0.0,
+             False),
+            ("chain_rate0", SDConfig(gamma=3, temperature=0.7), None, False,
+             0.0, False)):
         out[name], _ = continuous_pass(models, sdc, tree, prefix, sdc.kv_quant,
-                                       rate)
+                                       rate, warm=warm)
     out["tree"]["where_the_time_goes"] = profile_continuous(
         models, SDConfig(gamma=3, temperature=0.7), spec)
     emit({"phase": 16, "mix": CONT_MIX, "requests": CONT_N,
@@ -2327,6 +2480,7 @@ def phase17_continuous_greedy_exactness():
 
 
 CONT_LINE = re.compile(r"^continuous: (\d+) requests, (\d+) tokens", re.M)
+MAX_QUEUE_FIELD = re.compile(r"\bmax_queue=(\d+)")
 
 
 OBS_REPORT_LINES = ("quality over", "accept-vs-entropy:", "tenant chat:",
@@ -2358,7 +2512,7 @@ def check_obs_cli(d, stdout):
     assert OBS_SPANS <= names, OBS_SPANS - names
     snaps = [json.loads(ln) for ln in
              (d / "metrics.jsonl").read_text().splitlines()]
-    assert snaps[-1]["metrics"]["serve_completed_total"] == CONT_N
+    assert snaps[-1]["metrics"]["serve_completed_total"] == SHORT_N
     prom = (d / "metrics.jsonl.prom").read_text()
     assert "sd_pooled_tokens_total" in prom and "quality_rounds_total" in prom
     bundles = sorted((d / "flight").glob("flight_*_slo_breach.json"))
@@ -2374,16 +2528,18 @@ def check_obs_cli(d, stdout):
 
 def phase18_continuous_cli(smi):
     """The full-width pair through the serving CLI's --continuous branch in
-    subprocesses, on the chat mix (16 requests at 4/s, temperature 0.7):
+    subprocesses, on the chat mix (8 requests at 4/s through 4 slots,
+    temperature 0.7):
     tree with the prefix cache, int8 weights on both models and int8 KV
     pools, with every observability flag; then chain in bf16. Each must
-    exit 0 having served 16 requests, with its printed kernel launches:
+    exit 0 having served 8 requests, some of them queued, with its printed
+    kernel launches:
     tree attention (44 a round) and the int8 matmul for the first, no
     kernel for the chain; the first's files and reports are checked."""
     base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
             "llama2-7b-chat", "--continuous", "--traffic-mix", CONT_MIX,
-            "--requests", str(CONT_N), "--arrival-rate", str(CONT_RATE),
-            "--temperature", "0.7"]
+            "--requests", str(SHORT_N), "--arrival-rate", str(CONT_RATE),
+            "--max-batch", str(SHORT_BATCH), "--temperature", "0.7"]
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
@@ -2401,16 +2557,19 @@ def phase18_continuous_cli(smi):
             found = LAUNCH_LINE.search(proc.stdout)
             served, rounds = CONT_LINE.search(proc.stdout), ROUNDS_FIELD.search(
                 proc.stdout)
+            queued = MAX_QUEUE_FIELD.search(proc.stdout)
             run = runs[name] = {
                 "cmd": " ".join(base[1:] + extra), "rc": proc.returncode,
                 "s": time.perf_counter() - t0,
                 "launches": json.loads(found[1]) if found else None,
                 "requests": int(served[1]) if served else None,
                 "rounds": int(rounds[1]) if rounds else None,
+                "max_queue": int(queued[1]) if queued else None,
                 "stdout": proc.stdout.strip().splitlines()[-10:],
                 "stderr": proc.stderr.strip().splitlines()[-3:]}
             ok = (proc.returncode == 0 and run["launches"] is not None
-                  and run["requests"] == CONT_N
+                  and run["requests"] == SHORT_N
+                  and (run["max_queue"] or 0) >= 1
                   and all((n > 0) == (k in used)
                           for k, n in run["launches"].items()))
             if ok and "tree_attention" in used:
@@ -2537,7 +2696,8 @@ def phase19_head_serving(models, smi):
                                            spec)
     eagle, ehp = heads["eagle"]
     hmodels = (target, t_params, eagle, ehp, out["eagle"]["c"])
-    cont, _ = continuous_pass(hmodels, sdc, spec, prefix=True, kv_quant=False)
+    cont, _ = continuous_pass(hmodels, sdc, spec, prefix=True, kv_quant=False,
+                              n=SHORT_N, max_batch=SHORT_BATCH)
     tree_launches["continuous_tree_eagle"] = cont["launches"]["tree_attention"]
     cont["where_the_time_goes"] = profile_continuous(hmodels, sdc, spec)
     out["continuous_eagle_tree"] = cont
@@ -2614,7 +2774,7 @@ def phase20_head_greedy_exactness():
           "temperature": 0.0, "results": out})
 
 
-HEAD_TRAIN_B, HEAD_TRAIN_S, HEAD_TRAIN_STEPS = 4, 1024, 3
+HEAD_TRAIN_B, HEAD_TRAIN_S, HEAD_TRAIN_STEPS = 4, 1024, 2
 
 
 def phase21_head_training(smi):
@@ -2730,7 +2890,7 @@ def head_clis():
     mod = [sys.executable, "-m"]
     runs = {
         "train": (mod + ["repro_torch.launch.train", "--arch", "llama2-7b-chat",
-                         "--reduced", "--draft-head", "eagle", "--steps", "20",
+                         "--reduced", "--draft-head", "eagle", "--steps", "10",
                          "--save", ckpt], None),
         "serve_tree": (mod + ["repro_torch.launch.serve", "--arch",
                               "llama2-7b-chat", "--reduced", "--draft-head",
@@ -2739,8 +2899,9 @@ def head_clis():
         "serve_continuous_tree": (
             mod + ["repro_torch.launch.serve", "--arch", "llama2-7b-chat",
                    "--continuous", "--tree", "--draft-head", "eagle",
-                   "--traffic-mix", CONT_MIX, "--requests", str(CONT_N),
-                   "--arrival-rate", str(CONT_RATE), "--temperature", "0.7"], 32),
+                   "--traffic-mix", CONT_MIX, "--requests", str(SHORT_N),
+                   "--arrival-rate", str(CONT_RATE), "--max-batch",
+                   str(SHORT_BATCH), "--temperature", "0.7"], 32),
     }
     out = {}
     for name, (cmd, layers) in runs.items():
@@ -2770,8 +2931,10 @@ def head_clis():
                   and (run["rounds"] is None or n == layers * run["rounds"]))
             if name == "serve_continuous_tree":
                 served = CONT_LINE.search(proc.stdout)
+                queued = MAX_QUEUE_FIELD.search(proc.stdout)
                 ok = ok and run["rounds"] is not None and served is not None \
-                    and int(served[1]) == CONT_N
+                    and int(served[1]) == SHORT_N \
+                    and queued is not None and int(queued[1]) >= 1
         if not ok:
             emit({"phase": 21, "cli": out})
             raise AssertionError(f"head CLI run {name} failed: {run}")
@@ -2824,7 +2987,7 @@ def check_obs_files(engine, out_dir, spans):
     assert reg.histogram("sd_accepted_per_round").count == blocks
     snaps = [json.loads(ln) for ln in
              Path(engine.metrics_out).read_text().splitlines()]
-    assert snaps and snaps[-1]["metrics"]["serve_completed_total"] == CONT_N
+    assert snaps and snaps[-1]["metrics"]["serve_completed_total"] == SHORT_N
     prom = reg.to_prometheus()
     (out_dir / "metrics.prom").write_text(prom)
     for line in prom.splitlines():
@@ -2874,16 +3037,18 @@ def phase_busy_ms(trace_path):
 
 
 def phase22_observability(models, smi):
-    """The continuous engine's observability at full width on phase 16's
-    stream (tree (2, 2), prefix cache, temperature 0.7) in three passes:
-    (a) every hook off; (b) tracer, registry with JSONL snapshots, quality
-    telemetry, flight recorder and an SLO of TTFT 1 ms that must breach;
-    (c) (b) with the fenced phases, inside torch_profile. Each pass must
-    finish all 16 requests with 44 tree_attention launches a round; (b)'s
-    engine must make one device-to-host copy per decode round (profiled
-    windows of 8 decode rows); the trace, metrics, bundles and phase split
-    are checked; the hook cost is (a) against (b) in this call (the passes,
-    and windows in turns a, b, b, a)."""
+    """The continuous engine's observability at full width on the first 8
+    requests of phase 16's stream (tree (2, 2), prefix cache, temperature
+    0.7) in three passes: (a) every hook off; (b) tracer, registry with
+    JSONL snapshots, quality telemetry, flight recorder and an SLO of TTFT
+    1 ms that must breach; (c) (b) with the fenced phases, inside
+    torch_profile. Each pass must finish all 8 requests with 44
+    tree_attention launches a round; (b)'s engine must make one
+    device-to-host copy per decode round (profiled windows of 8 decode
+    rows); the trace, metrics, bundles and phase split are checked; the
+    hook cost is (a) against (b) in this call (the passes, a then b, and
+    one window each, b then a, so that a drift of the host's speed over
+    the phase moves the two comparisons in opposite directions)."""
     from repro_torch.core.speculative import SDConfig
     from repro_torch.obs import (acceptance_report, attribution_report,
                                  format_acceptance_report, format_attribution)
@@ -2896,14 +3061,17 @@ def phase22_observability(models, smi):
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        out["a_hooks_off"], _ = continuous_pass(models, sdc, spec, True, False)
+        out["a_hooks_off"], _ = continuous_pass(models, sdc, spec, True, False,
+                                                n=SHORT_N, warm=False)
         out["b_hooks_on"], eng_b = continuous_pass(
-            models, sdc, spec, True, False, **obs_engine_kw(tmp, "b", False))
+            models, sdc, spec, True, False, n=SHORT_N, warm=False,
+            **obs_engine_kw(tmp, "b", False))
         out["b_hooks_on"]["files"] = check_obs_files(
             eng_b, tmp / "b", OBS_SPANS - {"draft", "verify", "commit"})
         prof_dir = tmp / "c" / "torch_profile"
         out["c_phased_profiled"], eng_c = continuous_pass(
-            models, sdc, spec, True, False, profile_dir=str(prof_dir),
+            models, sdc, spec, True, False, profile_dir=str(prof_dir), n=SHORT_N,
+            warm=False,
             **obs_engine_kw(tmp, "c", True))
         out["c_phased_profiled"]["files"] = check_obs_files(eng_c, tmp / "c",
                                                             OBS_SPANS)
@@ -2911,10 +3079,10 @@ def phase22_observability(models, smi):
         assert prof_trace.stat().st_size > 0, prof_trace
         busy, dtoh_c, n_events = phase_busy_ms(prof_trace)
         # the cost of the hooks on a round at 8 active rows: (a) and (b) in
-        # this call, in turns a, b, b, a, each window its own engine
-        windows = {"a_hooks_off": [], "b_hooks_on": []}
-        for i, name in enumerate(("a_hooks_off", "b_hooks_on", "b_hooks_on",
-                                  "a_hooks_off")):
+        # this call, b then a (the passes ran a then b), each window its
+        # own engine
+        windows = {"b_hooks_on": [], "a_hooks_off": []}
+        for i, name in enumerate(windows):
             kw = obs_engine_kw(tmp, f"w{i}", False) if name[0] == "b" else {}
             windows[name].append(profile_continuous(models, sdc, spec, **kw))
         assert all(w["dtoh_copies_per_round"] == 1.0
@@ -2948,7 +3116,7 @@ def phase22_observability(models, smi):
         out["c_phased_profiled"]["torch_profile"] = {
             "trace_mb": prof_trace.stat().st_size / 1e6, "events": n_events,
             "dtoh_copies": dtoh_c,
-            "dtoh_per_round_and_first_token": dtoh_c / (rounds + CONT_N)}
+            "dtoh_per_round_and_first_token": dtoh_c / (rounds + SHORT_N)}
         out["quality"] = {
             "summary": q.summary(), "snapshot": q.snapshot(),
             "accept_vs_entropy": q.acceptance_entropy_curve(),
@@ -2965,7 +3133,7 @@ def phase22_observability(models, smi):
                                 for k, v in windows.items()},
         "dtoh_copies_per_round": {k: [w["dtoh_copies_per_round"] for w in v]
                                   for k, v in windows.items()}}
-    emit({"phase": 22, "mix": CONT_MIX, "requests": CONT_N,
+    emit({"phase": 22, "mix": CONT_MIX, "requests": SHORT_N,
           "arrival_rate": CONT_RATE, "engine": CONT_ENGINE, "temperature": 0.7,
           "tree": spec.branching, "slo": OBS_SLO, "passes": out,
           "wall_s": time.perf_counter() - t0, "nvidia_smi": smi})
@@ -2977,18 +3145,20 @@ def phase22_observability(models, smi):
 ARCH_CLI_RUNS = (   # (arch, note printed) served by tree through the CLI
     ("yi-9b", False), ("musicgen-large", True))
 GREEDY_ARCHS = ("phi4-mini-3.8b", "minitron-4b", "chameleon-34b")
+GEMMA = "gemma2-9b"
 NOTE = "note: serving single-codebook variant of musicgen-large"
 
 
-def arch_clis():
+def arch_clis(runs=ARCH_CLI_RUNS, phase="23e"):
     """The serving CLI by tree at full width in subprocesses (4 requests,
-    16 + 32 tokens, temperature 0.7): Yi-9B, and MusicGen-large, which
-    must print the reference's single-codebook note. Each must exit 0 with
-    tree_attention launched (target + drafter layers * 3) times a round
-    of its printed rounds, and no other kernel."""
+    16 + 32 tokens, temperature 0.7), for each (arch, note printed) of
+    ``runs``: Yi-9B, and MusicGen-large, which must print the reference's
+    single-codebook note. Each must exit 0 with tree_attention launched
+    (target + drafter layers * 3) times a round of its printed rounds, and
+    no other kernel."""
     from repro_torch.configs import get_config
     out = {}
-    for arch, note in ARCH_CLI_RUNS:
+    for arch, note in runs:
         cfg = get_config(arch)
         per_round = cfg.num_layers + cfg.drafter().num_layers * 3
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
@@ -3013,7 +3183,7 @@ def arch_clis():
               and all(v == 0 for k, v in la.items() if k != "tree_attention")
               and run["note_printed"] == note)
         if not ok:
-            emit({"phase": "23e", "cli": out})
+            emit({"phase": phase, "cli": out})
             raise AssertionError(f"serving CLI run of {arch} failed: {run}")
     return out
 
@@ -3022,9 +3192,9 @@ def phase23_archs(smi):
     """The registry's served archs on the card. (a) Yi-9B at full width in
     bf16 with its drafter (seeds 0/1): tree (2, 2) and chain gamma 3 over 4
     x (128 + 64) at temperature 0.7, 48 + 4 * 3 = 60 tree_attention
-    launches a tree round, MBSU with c from ``param_count``; (b) phase 16's
-    chat stream through the continuous engine by tree with the prefix
-    cache; (c) greedy exactness with 2 float32 target layers, chain and
+    launches a tree round, MBSU with c from ``param_count``; (b) the first
+    8 requests of phase 16's chat stream through the continuous engine by
+    tree with the prefix cache; (c) greedy exactness with 2 float32 target layers, chain and
     tree, static and continuous; (d) greedy exactness by tree for
     Phi-4-mini, Minitron-4B and Chameleon-34B (qk-norm) at published widths
     with 2 float32 target layers; (e) the serving CLI by tree at full
@@ -3049,13 +3219,15 @@ def phase23_archs(smi):
           "resident_before_gb": resident_gb,
           "weights_gb": torch.cuda.memory_allocated() / 1e9 - resident_gb})
     tree = phase3_tree_serving(models, smi, phase="23a")
-    chain = phase4_chain_serving(models, smi, phase="23a")
+    chain = phase4_chain_serving(models, smi, phase="23a", ar=False)
     assert all(n == 0 for k, n in tree.items() if k != "tree_attention"), tree
     assert not any(chain.values()), chain
     cont, _ = continuous_pass(models, SDConfig(gamma=3, temperature=0.7), spec,
-                              prefix=True, kv_quant=False)
+                              prefix=True, kv_quant=False, n=SHORT_N,
+                              max_batch=SHORT_BATCH)
     emit({"phase": "23b", "arch": target.cfg.name, "mix": CONT_MIX,
-          "requests": CONT_N, "arrival_rate": CONT_RATE, "engine": CONT_ENGINE,
+          "requests": SHORT_N, "arrival_rate": CONT_RATE,
+          "engine": {**CONT_ENGINE, "max_batch": SHORT_BATCH},
           "temperature": 0.7, "pass": cont, "nvidia_smi": smi})
     del models, target, draft
     torch.cuda.empty_cache()
@@ -3069,6 +3241,192 @@ def phase23_archs(smi):
         assert ok, ("greedy tokens differ, or tree launches are off", out)
     emit({"phase": "23e", "cli": arch_clis(), "nvidia_smi": smi})
     return tree["tree_attention"] + cont["launches"]["tree_attention"]
+
+
+# ------------------------------------------------ Gemma-2-9B (24)
+
+GEMMA_LONG = dict(requests=4, prompt=4160, max_new=64)   # 24b, past 4,096
+GEMMA_LONG_ENGINE = dict(max_batch=8, page_size=16, prefill_chunk=512)
+GEMMA_EXACT = (("past_window", 4160, False),     # 24c: (name, prompt, long
+               ("long_context", 8256, True))     # context) past each window
+
+
+def long_requests(n, prompt_len, max_new, vocab, seed=0, spread=0):
+    """``n`` requests of seeded random prompts of ``prompt_len`` (+ i *
+    ``spread`` for the i-th) tokens, all arriving at t = 0."""
+    from repro_torch.serving import ServeRequest
+    rng = np.random.default_rng(seed)
+    return [ServeRequest(prompt=rng.integers(3, vocab, prompt_len + i * spread)
+                         .astype(np.int64), max_new_tokens=max_new,
+                         request_id=i)
+            for i in range(n)]
+
+
+def gemma_past_the_window(models, smi):
+    """24b: the continuous engine by tree (2, 2) at 0.7 over 4 requests of
+    4,160 seeded tokens + 64 new, all at t = 0, 512-token prefill chunks, 8
+    slots, 16-slot pages: every request decodes past position 4,096, where
+    the local layers mask by the window and the global ones do not; 54
+    tree_attention launches a round and no other kernel."""
+    from repro_torch.core.speculative import SDConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.spectree.tree import TreeSpec
+    target, t_params, draft, d_params, c = models
+    spec, sdc = TreeSpec((2, 2)), SDConfig(gamma=3, temperature=0.7)
+    V = target.cfg.vocab_size
+    g = GEMMA_LONG
+    # warm-up at the same widths on a short request, not counted
+    serve.serve_continuous(target, t_params, draft, d_params,
+                           long_requests(1, 512, 8, V, seed=1), sdc, spec,
+                           **GEMMA_LONG_ENGINE)
+    reqs = long_requests(g["requests"], g["prompt"], g["max_new"], V)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    engine, results = serve.serve_continuous(target, t_params, draft, d_params,
+                                             reqs, sdc, spec,
+                                             **GEMMA_LONG_ENGINE)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check_served(results, reqs, V)
+    R = engine.telemetry.decode_rounds
+    per_round = tree_launches_per_round(target, draft, spec)
+    want = {k: 0 for k in launches}
+    want["tree_attention"] = R * per_round
+    assert R > 0 and launches == want, (launches, want)
+    first_decode_pos = min(len(r.prompt) for r in reqs)
+    assert first_decode_pos > target.cfg.sliding_window, first_decode_pos
+    view = engine.pool.max_pages_per_seq * engine.page_size
+    summary = serve.continuous_summary(engine, results, c, spec.depth)
+    assert summary["tau"] >= 1.0 and math.isfinite(summary["tau"]), summary
+    summary.update(launches=launches, tree_attention_per_round=per_round,
+                   first_decode_position=first_decode_pos,
+                   window=target.cfg.sliding_window, view_slots=view,
+                   num_pages=engine.num_pages,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit({"phase": "24b", "arch": target.cfg.name, **g,
+          "engine": GEMMA_LONG_ENGINE, "temperature": 0.7, "tree": [2, 2],
+          "pass": summary, "nvidia_smi": smi})
+    return launches["tree_attention"]
+
+
+def gemma_greedy_exactness():
+    """24c: temperature 0 with Gemma-2-9B's target cut to 2 float32 layers
+    (one local_attn, one attn) at published widths and its float32
+    drafter: (i) within the window (P 64), static chain and tree and the
+    continuous engine, as ``greedy_exactness``; (ii) past the window (2
+    requests of 4,160 and 4,167 tokens, 16 new) and (iii) with
+    long_context (8,256 and 8,263 tokens: the global layers window at
+    8,192), the continuous engine by chain and tree (2 slots, 512-token
+    chunks) and the static chain and tree, each request's tokens equal to
+    its static AR tokens with the same long_context."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.speculative import (SDConfig, autoregressive_generate,
+                                              speculative_generate)
+    from repro_torch.models.model import Model
+    from repro_torch.serving import ContinuousEngine
+    from repro_torch.spectree.round import tree_speculative_generate
+    from repro_torch.spectree.tree import TreeSpec
+    out, ok = greedy_exactness(GEMMA, 64, 16, chain=True, continuous=True)
+    cfg = get_config(GEMMA).replace(num_layers=2, dtype="float32")
+    target, draft = Model(cfg, "cuda"), Model(cfg.drafter(), "cuda")
+    t_params, d_params = target.init(0), draft.init(1)
+    spec, M = TreeSpec((2, 2)), 16
+    for name, P, lc in GEMMA_EXACT:
+        assert P > (cfg.long_context_window if lc else cfg.sliding_window)
+        sdc = SDConfig(gamma=3, temperature=0.0, long_context=lc)
+        reqs = long_requests(2, P, M, cfg.vocab_size, seed=7, spread=7)
+        res = out[name] = {"prompts": [len(r.prompt) for r in reqs],
+                           "max_new": M, "long_context": lc}
+        greedy, chain, tree = {}, {}, {}
+        for r in reqs:
+            prompt = torch.as_tensor(r.prompt[None], device=target.device)
+            L = len(r.prompt)
+            greedy[r.request_id] = autoregressive_generate(
+                target, t_params, prompt, M, temperature=0.0,
+                long_context=lc)[0][0, L:].cpu().numpy()
+            chain[r.request_id] = speculative_generate(
+                draft, target, d_params, t_params, prompt, M,
+                sdc)[0][0, L:L + M].cpu().numpy()
+            tree[r.request_id] = tree_speculative_generate(
+                draft, target, d_params, t_params, prompt, M, sdc,
+                spec)[0][0, L:L + M].cpu().numpy()
+        if lc:      # does the 8,192 window change this model's tokens?
+            res["ar_differs_without_long_context"] = any(
+                not np.array_equal(autoregressive_generate(
+                    target, t_params,
+                    torch.as_tensor(r.prompt[None], device=target.device), M,
+                    temperature=0.0)[0][0, len(r.prompt):].cpu().numpy(),
+                    greedy[r.request_id]) for r in reqs)
+        res["static_chain_equals_ar"] = all(
+            np.array_equal(chain[i], greedy[i]) for i in greedy)
+        res["static_tree_equals_ar"] = all(
+            np.array_equal(tree[i], greedy[i]) for i in greedy)
+        for kind, tr in (("chain", None), ("tree", spec)):
+            engine = ContinuousEngine(
+                target=target, target_params=t_params, draft=draft,
+                draft_params=d_params, sd=sdc, tree=tr, max_batch=2,
+                page_size=16, prefill_chunk=512, max_seq_len=P + 7 + M)
+            got = {r.request_id: r.tokens for r in engine.serve(
+                long_requests(2, P, M, cfg.vocab_size, seed=7, spread=7))}
+            res[f"continuous_{kind}_equals_ar"] = all(
+                np.array_equal(got[i], greedy[i]) for i in greedy)
+        ok &= all(v for k, v in res.items() if k.endswith("_equals_ar"))
+    del target, draft, t_params, d_params
+    torch.cuda.empty_cache()
+    return out, ok
+
+
+def phase24_gemma(smi):
+    """Gemma-2-9B on the card (after phase 23, once Yi is freed). (a)
+    Full width (42 layers alternating local_attn and attn, window 4,096, d
+    3584, 16 heads on 8 KV heads at hd 256, softcaps 50/30, scaled
+    embeddings, V 256000; 10.16B parameters) with its drafter (4 layers, d
+    1024, hd 128; 0.571B) in bf16 from seeds 0/1: tree (2, 2) and chain
+    gamma 3 over 4 x (128 + 64) at temperature 0.7, within the window:
+    42 + 4 * 3 = 54 tree_attention launches a tree round and no other
+    kernel; (b) the continuous engine past the window
+    (``gemma_past_the_window``); (c) greedy exactness within and past the
+    window and with long_context (``gemma_greedy_exactness``); (d) the
+    serving CLI by tree at full width. Returns the tree_attention launches
+    of (a) and (b)."""
+    from repro_torch.launch import serve
+    from repro_torch.spectree.tree import TreeSpec
+    spec = TreeSpec((2, 2))
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    models = serve.build_models(GEMMA, False, "cuda")
+    target, _, draft, _, c = models
+    cfg = target.cfg
+    c_cfg = draft.cfg.param_count() / cfg.param_count()
+    assert c == c_cfg, (c, c_cfg)          # param_count matches the init
+    per_round = tree_launches_per_round(target, draft, spec)
+    assert per_round == 54, per_round
+    assert cfg.scale_embed and 128 + 64 + 7 + 2 < cfg.sliding_window
+    emit({"phase": "24a", "arch": cfg.name, "drafter": draft.cfg.name,
+          "params": cfg.param_count(), "drafter_params":
+          draft.cfg.param_count(), "c": c, "layer_pattern": cfg.layer_pattern,
+          "window": cfg.sliding_window, "head_dim": cfg.head_dim_,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+          "resident_before_gb": resident_gb,
+          "weights_gb": torch.cuda.memory_allocated() / 1e9 - resident_gb})
+    tree = phase3_tree_serving(models, smi, phase="24a")
+    chain = phase4_chain_serving(models, smi, phase="24a", ar=False)
+    assert all(n == 0 for k, n in tree.items() if k != "tree_attention"), tree
+    assert not any(chain.values()), chain
+    long_launches = gemma_past_the_window(models, smi)
+    del models, target, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    exact, ok = gemma_greedy_exactness()
+    emit({"phase": "24c", **exact})
+    assert ok, ("Gemma-2 greedy tokens differ from AR, or tree launches are "
+                "off", exact)
+    emit({"phase": "24d", "cli": arch_clis(((GEMMA, False),), phase="24d"),
+          "nvidia_smi": smi})
+    return tree["tree_attention"] + long_launches
 
 
 PHASE_SECONDS = {}
@@ -3118,6 +3476,9 @@ def main():
     gc.collect()        # the engines' reference cycles still hold the pair
     torch.cuda.empty_cache()
     arch_launches = timed(23, phase23_archs, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch_launches += timed(24, phase24_gemma, smi)
     torch.cuda.empty_cache()
     timed(5, phase5_greedy_exactness)
     torch.cuda.empty_cache()
@@ -3163,8 +3524,9 @@ def main():
         # EAGLE and Medusa, continuous EAGLE); no other kernel runs there
         kernels[-1]["head_path_launches"] = (
             head_launches if name == "tree_attention" else 0)
-        # launches on the registry's path: phase 23's Yi-9B tree passes
-        # (static and continuous); no other kernel runs there
+        # launches on the registry's path: phase 23's Yi-9B and phase 24's
+        # Gemma-2-9B tree passes (static and continuous); no other kernel
+        # runs there
         kernels[-1]["arch_path_launches"] = (
             arch_launches if name == "tree_attention" else 0)
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,

@@ -63,7 +63,9 @@ def attention_only(cfg) -> bool:
 
 
 def trim_attn_cache(cache, limit):
-    """Invalidate cache entries with position > limit (B,), in place."""
+    """Invalidate cache entries with position > limit (B,), in place. Keyed
+    on the positions, not the slots, so a ring (a windowed layer's cache)
+    is rewound the same way."""
     for layer in cache:
         layer["pos"].masked_fill_(layer["pos"] > limit[:, None], -1)
     return cache
@@ -135,6 +137,9 @@ class SDConfig:
     gamma: int = 3
     temperature: float = 1.0
     top_p: float = 1.0
+    # windowed global attention (``cfg.long_context_window``) in every
+    # model call of the round, prefill included
+    long_context: bool = False
     # int8 KV caches for both models (quant.kvcache): the prefill caches are
     # converted once, decode writes quantized entries directly
     kv_quant: bool = False
@@ -222,6 +227,7 @@ def sd_draft_phase(draft, sdc: SDConfig, d_params, state, gen, noise=None,
     for j in range(g + 1):
         logits, d_cache = draft.decode_step(d_params, tok[:, None],
                                             (lengths + j)[:, None], d_cache,
+                                            long_context=sdc.long_context,
                                             page_table=page_table)
         p = probs_from_logits(logits[:, 0], sdc.temperature, sdc.top_p)
         ps.append(p)
@@ -246,6 +252,7 @@ def sd_verify_phase(target: Model, sdc: SDConfig, t_params, state, draft_out):
     feed = torch.cat([pending[:, None], draft_out["x"].T], dim=1)   # (B, g+1)
     positions = lengths[:, None] + torch.arange(g + 1, device=lengths.device)
     out = target.decode_step(t_params, feed, positions, state["t_cache"],
+                             long_context=sdc.long_context,
                              page_table=masked_page_table(state),
                              return_hidden=head)
     q_stack = probs_from_logits(out[0], sdc.temperature, sdc.top_p)
@@ -322,13 +329,14 @@ def _prefill_state(draft, target: Model, d_params, t_params, prompt,
     B, S = prompt.shape
     head = is_head_drafter(draft)
     out = target.prefill(t_params, prompt, cache_len=max_total,
-                         return_hidden=head)
+                         long_context=sdc.long_context, return_hidden=head)
     lg_t, t_cache = out[0], out[1]
     state = {"t_cache": quantize_kv_cache(t_cache) if sdc.kv_quant else t_cache}
     if head:
         state["h_feat"] = out[2][:, -1]
     else:
-        _, d_cache = draft.prefill(d_params, prompt, cache_len=max_total)
+        _, d_cache = draft.prefill(d_params, prompt, cache_len=max_total,
+                                   long_context=sdc.long_context)
         state["d_cache"] = quantize_kv_cache(d_cache) if sdc.kv_quant else d_cache
     q0 = probs_from_logits(lg_t[:, 0], sdc.temperature, sdc.top_p)
     tokens = torch.zeros((B, max_total + sdc.gamma + 2), dtype=torch.long,
@@ -387,13 +395,14 @@ def speculative_generate(draft, target: Model, d_params, t_params,
 
 def autoregressive_generate(model: Model, params, prompt, max_new_tokens: int,
                             temperature: float = 1.0, top_p: float = 1.0,
-                            gen=None):
+                            gen=None, long_context: bool = False):
     """Plain AR decoding baseline (one token per model call). Returns
     (tokens (B, S + max_new), decode wall time in seconds)."""
     if gen is None:
         gen = torch.Generator(device=prompt.device).manual_seed(0)
     B, S = prompt.shape
-    lg, cache = model.prefill(params, prompt, cache_len=S + max_new_tokens + 1)
+    lg, cache = model.prefill(params, prompt, cache_len=S + max_new_tokens + 1,
+                              long_context=long_context)
     toks = [prompt]
     cur = sample_from_probs(probs_from_logits(lg[:, 0], temperature, top_p), gen)
     t0 = time.perf_counter()
@@ -402,7 +411,8 @@ def autoregressive_generate(model: Model, params, prompt, max_new_tokens: int,
         if i == max_new_tokens - 1:
             break
         pos = torch.full((B, 1), S + i, dtype=torch.long, device=prompt.device)
-        lg, cache = model.decode_step(params, cur[:, None], pos, cache)
+        lg, cache = model.decode_step(params, cur[:, None], pos, cache,
+                                      long_context=long_context)
         cur = sample_from_probs(probs_from_logits(lg[:, 0], temperature, top_p),
                                 gen)
     out = torch.cat(toks, dim=1)

@@ -25,8 +25,8 @@ head checkpoint (``checkpoint.save_draft_heads``) that ``launch.serve
       --reduced --steps 50 --draft-head eagle --save heads.npz
 
 ``--arch`` takes every key of ``configs.ARCHS``; an arch whose layers the
-port does not run yet (Gemma-2's local attention, MoE, recurrent layers,
-MusicGen's four codebooks) exits with the model's refusal, which names the
+port does not run yet (MoE, recurrent layers, MusicGen's four codebooks)
+exits with the model's refusal, which names the
 ROADMAP item that ports it.
 
 The synthetic corpus holds six V x V float64 transition matrices, so a

@@ -1,8 +1,13 @@
-"""GQA attention, with optional qk-norm: training and prefill
-(query-chunked causal) and decode against a KV cache, with the slots and
-ancestor masks of tree speculation (``repro.models.attention``): the dense
-per-row cache and the shared paged pool of continuous serving
+"""GQA attention, with optional qk-norm and a sliding window: training and
+prefill (query-chunked causal) and decode against a KV cache, with the
+slots and ancestor masks of tree speculation (``repro.models.attention``):
+the dense per-row cache and the shared paged pool of continuous serving
 (``paged_decode_attention``).
+
+``window`` (Gemma-2's local layers, or every layer in long-context mode)
+keeps a key only where its position is above the query's position minus
+the window; it is ANDed into the mask before attention, so a tree-masked
+call reaches the tree attention kernel with the window folded in.
 
 Dispatch is the reference's: a tree-masked decode call goes to the tree
 attention kernel (``kernels.ops.tree_verify_attention``); training, prefill and
@@ -77,10 +82,11 @@ def _attend(q, k, v, mask, cfg, tree: bool):
     return _sdpa(q, k, v, mask, cfg)
 
 
-def _causal(params, x, positions, cfg):
+def _causal(params, x, positions, cfg, window=None):
     """Causal self-attention of x, looped over query chunks of
-    ``cfg.attn_chunk`` (one chunk where the length is no multiple of it).
-    Returns (out after the output projection, k, v, kv positions (B, S))."""
+    ``cfg.attn_chunk`` (one chunk where the length is no multiple of it),
+    within ``window`` positions where one is given. Returns (out after the
+    output projection, k, v, kv positions (B, S))."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions)
     kv_pos = positions if positions.dim() == 2 else positions[None].expand(B, S)
@@ -89,22 +95,26 @@ def _causal(params, x, positions, cfg):
         C = S
     outs = []
     for i in range(0, S, C):
-        m = kv_pos[:, i:i + C, None] >= kv_pos[:, None, :]
+        qp = kv_pos[:, i:i + C, None]
+        m = qp >= kv_pos[:, None, :]
+        if window is not None:
+            m &= kv_pos[:, None, :] > qp - window
         outs.append(_sdpa(q[:, i:i + C], k, v, m, cfg))
     out = torch.cat(outs, dim=1).reshape(B, S, cfg.num_heads * cfg.head_dim_)
     return matmul_param(out, params["wo"]), k, v, kv_pos
 
 
-def causal_attention(params, x, positions, cfg):
+def causal_attention(params, x, positions, cfg, window=None):
     """Full-sequence causal attention of training: no cache."""
-    return _causal(params, x, positions, cfg)[0]
+    return _causal(params, x, positions, cfg, window)[0]
 
 
-def prefill_attention(params, x, positions, cfg, cache_len: int):
+def prefill_attention(params, x, positions, cfg, cache_len: int,
+                      window=None):
     """Causal attention over the prompt; returns (out, cache of
     ``cache_len`` slots in the ring layout of ``decode_attention``)."""
     B, S, _ = x.shape
-    out, k, v, kv_pos = _causal(params, x, positions, cfg)
+    out, k, v, kv_pos = _causal(params, x, positions, cfg, window)
 
     dt = cfg.compute_dtype
     shape = (B, cache_len, cfg.num_kv_heads, cfg.head_dim_)
@@ -125,7 +135,8 @@ def prefill_attention(params, x, positions, cfg, cache_len: int):
     return out, {"k": kc, "v": vc, "pos": cp}
 
 
-def decode_attention(params, x, cache, pos, cfg, slots=None, attn_mask=None):
+def decode_attention(params, x, cache, pos, cfg, window=None, slots=None,
+                     attn_mask=None):
     """Decode T new tokens against a (ring-indexed) KV cache.
 
     x: (B, T, D) new tokens (T = 1, gamma+1 in chain verify, or the tree
@@ -136,7 +147,12 @@ def decode_attention(params, x, cache, pos, cfg, slots=None, attn_mask=None):
       records the storage position.
     attn_mask: optional (B, T, Smax) slot-aligned mask replacing positional
       causality (tree ancestor masks); validity of written slots is still
-      enforced here. Such calls go through the tree attention kernel.
+      enforced here, and so is ``window``. Such calls go through the tree
+      attention kernel.
+    All T entries are written before any is attended, as in the reference:
+    in a ring narrower than the positions it holds (a window-sized cache)
+    a call with T > 1 overwrites the oldest in-window keys of its own
+    earlier queries.
     An int8 cache (one with "k_scale") gets the new entries quantized per
     (slot, kv head) on write, and attention reads its dequantized view.
     Returns (out, cache) with the new tokens written into ``cache``.
@@ -166,6 +182,8 @@ def decode_attention(params, x, cache, pos, cfg, slots=None, attn_mask=None):
         m = (cache_pos[:, None, :] >= 0) & (cache_pos[:, None, :] <= pos[:, :, None])
     else:
         m = (cache_pos[:, None, :] >= 0) & attn_mask
+    if window is not None:
+        m &= cache_pos[:, None, :] > pos[:, :, None] - window
     out = _attend(q, kc, vc, m, cfg, tree=attn_mask is not None)
     out = matmul_param(out.reshape(B, T, cfg.num_heads * cfg.head_dim_),
                        params["wo"])
@@ -183,7 +201,7 @@ def _zero_null_page(pool):
 
 
 def paged_decode_attention(params, x, cache, page_table, pos, cfg,
-                           slots=None, attn_mask=None):
+                           window=None, slots=None, attn_mask=None):
     """Decode T new tokens against a shared paged KV pool.
 
     cache: {"k", "v": (P, page, Hkv, hd), "page_pos": (P, page)} (int8
@@ -201,6 +219,7 @@ def paged_decode_attention(params, x, cache, page_table, pos, cfg,
     attn_mask: optional (B, T, max_pages * page) mask over the gathered view
       replacing positional causality; such calls go through the tree
       attention kernel, at a width that is any multiple of the page size.
+    window: pages keep every position; the window only masks.
 
     Shared (prefix-cache) pages appear in several rows' tables; they are
     read-only by the allocator's contract, so every write here lands on a
@@ -240,6 +259,8 @@ def paged_decode_attention(params, x, cache, page_table, pos, cfg,
         m = (cp[:, None, :] >= 0) & (cp[:, None, :] <= pos[:, :, None])
     else:
         m = (cp[:, None, :] >= 0) & attn_mask
+    if window is not None:
+        m &= cp[:, None, :] > pos[:, :, None] - window
     out = _attend(q, kc, vc, m, cfg, tree=attn_mask is not None)
     out = matmul_param(out.reshape(B, T, cfg.num_heads * cfg.head_dim_),
                        params["wo"])

@@ -88,8 +88,12 @@ class Model:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return tfm.init_params(gen, self.cfg, self.device, dtype)
 
-    def init_cache(self, batch: int, max_len: int, kv_quant: bool = False):
-        return tfm.init_cache(self.cfg, batch, max_len, self.device, kv_quant)
+    def init_cache(self, batch: int, max_len: int, long_context: bool = False,
+                   kv_quant: bool = False):
+        """Per-layer KV caches; a windowed layer's is a ring of
+        ``min(max_len, window)`` slots."""
+        return tfm.init_cache(self.cfg, batch, max_len, self.device,
+                              long_context, kv_quant)
 
     def init_paged_cache(self, num_pages: int, page_size: int,
                          kv_quant: bool = False):
@@ -119,20 +123,23 @@ class Model:
         loss = s / c.clamp(min=1)
         return loss, {"ce": loss}
 
-    def prefill(self, params, tokens, cache_len: int, positions=None,
+    def prefill(self, params, tokens, cache_len: int,
+                long_context: bool = False, positions=None,
                 return_hidden: bool = False):
         """tokens (B, S) -> (logits of the last position (B, 1, V) fp32,
         caches of ``cache_len`` slots), plus the (B, S, D) final hidden
         states with ``return_hidden`` (draft heads seed their feature from
-        the last prompt position)."""
+        the last prompt position). ``long_context`` windows the global
+        layers at ``cfg.long_context_window``."""
         h, cache = tfm.backbone(params, tokens, self.cfg, mode="prefill",
-                                positions=positions, cache_len=cache_len)
+                                positions=positions, cache_len=cache_len,
+                                long_context=long_context)
         logits = tfm.logits_from_hidden(params, h[:, -1:], self.cfg)
         return (logits, cache, h) if return_hidden else (logits, cache)
 
-    def decode_step(self, params, tokens, positions, cache, slots=None,
-                    attn_mask=None, page_table=None,
-                    return_hidden: bool = False):
+    def decode_step(self, params, tokens, positions, cache,
+                    long_context: bool = False, slots=None, attn_mask=None,
+                    page_table=None, return_hidden: bool = False):
         """tokens (B, T) new ids, positions (B, T) absolute -> (logits
         (B, T, V) fp32, cache), plus the (B, T, D) final hidden states the
         logits came from with ``return_hidden`` (the verify pass hands them
@@ -140,9 +147,11 @@ class Model:
         storage slots for nodes that share a RoPE position, and an ancestor
         mask replacing positional causality. With ``page_table`` (B,
         max_pages) the attention layers read and write the shared paged
-        pool (``init_paged_cache``) instead of per-row caches."""
+        pool (``init_paged_cache``) instead of per-row caches.
+        ``long_context`` windows the global layers as in ``prefill``."""
         h, cache = tfm.backbone(params, tokens, self.cfg, mode="decode",
                                 positions=positions, cache=cache,
+                                long_context=long_context,
                                 slots=slots, attn_mask=attn_mask,
                                 page_table=page_table)
         logits = tfm.logits_from_hidden(params, h, self.cfg)

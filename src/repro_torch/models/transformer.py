@@ -4,10 +4,13 @@
 The reference stacks each group's parameters on a leading layer axis and
 scans over it; the port keeps one parameter dict and one cache dict per
 layer, in ``params["layers"]`` and a list of caches, and loops over them.
-Only the ``attn`` layer kind is ported, with qk-norm and softcaps;
-``check_config`` refuses every other kind and feature of the registry,
-naming the ROADMAP item (queue 1) that ports it, so that no config runs
-with a feature silently dropped.
+Layer i is of kind ``layer_kinds(cfg)[i]``: the repeating pattern r-major,
+then the remainder, the order in which ``bridge.params_from_jax`` unstacks
+the reference's groups. The ``attn`` and ``local_attn`` kinds are ported,
+with qk-norm, softcaps, sliding windows, long-context windows and scaled
+embeddings (Gemma-2); ``check_config`` refuses every other kind and
+feature of the registry, naming the ROADMAP item (queue 1) that ports it,
+so that no config runs with a feature silently dropped.
 """
 from __future__ import annotations
 
@@ -21,25 +24,25 @@ from .layers import (dense_param, embed_tokens, lm_head_logits, rms_norm,
 
 
 # ROADMAP.md queue 1 items that port what the decoder refuses
-_GEMMA2 = "ROADMAP §1 item 2 (sliding windows and long context, gemma2-9b)"
 _CODEBOOKS = ("ROADMAP §1 item 3 (multi-codebook embeddings, heads and loss, "
               "musicgen-large with K 4)")
 _MOE = "ROADMAP §1 item 4 (mixture of experts)"
 _RECURRENT = "ROADMAP §1 item 5 (recurrent layers and hybrids)"
-_ITEM_OF_KIND = {LOCAL_ATTN: _GEMMA2, MAMBA: _RECURRENT, MLSTM: _RECURRENT,
-                 SLSTM: _RECURRENT, SHARED_ATTN: _RECURRENT}
+_ITEM_OF_KIND = {MAMBA: _RECURRENT, MLSTM: _RECURRENT, SLSTM: _RECURRENT,
+                 SHARED_ATTN: _RECURRENT}
+_ATTN_KINDS = (ATTN, LOCAL_ATTN)
 
 
 def check_config(cfg):
     """Raise ``ValueError`` naming the ROADMAP item of the first layer kind
-    or feature of ``cfg`` that the port does not run yet: ``local_attn`` or
-    ``scale_embed``, experts, recurrent and shared-attention layers, more
-    than one codebook. Softcaps and qk-norm are ported."""
+    or feature of ``cfg`` that the port does not run yet: experts,
+    recurrent and shared-attention layers, more than one codebook.
+    Softcaps, qk-norm, ``local_attn`` layers and ``scale_embed`` are
+    ported."""
     g, _, rem = cfg.pattern_blocks()
     refused = [(f"the '{kind}' layer kind", _ITEM_OF_KIND.get(kind, "no item"))
-               for kind in tuple(g) + tuple(rem) if kind != ATTN]
+               for kind in tuple(g) + tuple(rem) if kind not in _ATTN_KINDS]
     refused += [(what, item) for on, what, item in (
-        (cfg.scale_embed, "scale_embed (embeddings times sqrt(d))", _GEMMA2),
         (cfg.is_moe, f"mixture of experts ({cfg.num_experts} experts)", _MOE),
         (cfg.num_codebooks > 1,
          f"multi-codebook input ({cfg.num_codebooks} codebooks)", _CODEBOOKS))
@@ -50,6 +53,28 @@ def check_config(cfg):
                          f"for {item}")
     if cfg.d_ff <= 0:
         raise ValueError(f"{cfg.name}: the port needs an FFN (d_ff > 0)")
+
+
+def layer_kinds(cfg):
+    """The kind of every layer in order: the pattern r-major, then the
+    remainder."""
+    g, n, rem = cfg.pattern_blocks()
+    return tuple(g) * n + tuple(rem)
+
+
+def _block_window(cfg, kind, long_context):
+    """The attention window of a layer of ``kind``, or None (the
+    reference's ``_block_window``)."""
+    if kind == LOCAL_ATTN:
+        return cfg.sliding_window
+    if long_context:           # dense fallback: windowed global attention
+        return cfg.long_context_window
+    return None
+
+
+def layer_windows(cfg, long_context=False):
+    """``_block_window`` of every layer in order."""
+    return [_block_window(cfg, kind, long_context) for kind in layer_kinds(cfg)]
 
 
 def init_params(gen, cfg, device, dtype=None):
@@ -89,18 +114,22 @@ def init_params(gen, cfg, device, dtype=None):
     return params
 
 
-def init_cache(cfg, batch, max_len, device, kv_quant=False):
-    """One empty KV cache dict per layer (positions -1 = empty slot).
-    ``kv_quant`` builds the int8 layout (``quant.kvcache``): int8 k/v plus
-    fp32 per-(slot, head) "k_scale"/"v_scale" of shape (B, S, Hkv)."""
+def init_cache(cfg, batch, max_len, device, long_context=False,
+               kv_quant=False):
+    """One empty KV cache dict per layer (positions -1 = empty slot), of
+    ``min(max_len, window)`` slots in a windowed layer (a ring) and
+    ``max_len`` in the others. ``kv_quant`` builds the int8 layout
+    (``quant.kvcache``): int8 k/v plus fp32 per-(slot, head)
+    "k_scale"/"v_scale" of shape (B, S, Hkv)."""
     check_config(cfg)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
     kv_dtype = torch.int8 if kv_quant else cfg.compute_dtype
     caches = []
-    for _ in range(cfg.num_layers):
+    for window in layer_windows(cfg, long_context):
+        size = min(max_len, window) if window else max_len
+        shape = (batch, size, cfg.num_kv_heads, cfg.head_dim_)
         c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
              "v": torch.zeros(shape, dtype=kv_dtype, device=device),
-             "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+             "pos": torch.full((batch, size), -1, dtype=torch.int32,
                                device=device)}
         if kv_quant:
             c["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
@@ -117,6 +146,8 @@ def init_paged_cache(cfg, num_pages, page_size, device, kv_quant=False):
     page)}, no batch axis; rows share the pool through a page table
     (serving.kv_pool), and physical page 0 is the null page. ``kv_quant``
     stores int8 k/v plus fp32 per-(page slot, head) "k_scale"/"v_scale".
+    Windowed layers get the same pool: pages keep every position, and the
+    window only masks.
 
     The pool is zeroed, not left uninitialised: every row's gathered view
     holds null-page and never-written slots at probability 0, and a
@@ -139,53 +170,61 @@ def init_paged_cache(cfg, num_pages, page_size, device, kv_quant=False):
     return pools
 
 
-def _train_layer(lp, x, positions, cfg):
+def _train_layer(lp, x, positions, cfg, window):
     x = x + attn_mod.causal_attention(lp["attn"], rms_norm(x, lp["norm1"],
                                                            cfg.norm_eps),
-                                      positions, cfg)
+                                      positions, cfg, window)
     return x + swiglu(lp["mlp"], rms_norm(x, lp["norm2"], cfg.norm_eps))
 
 
 def backbone(params, tokens, cfg, mode, positions=None, cache=None,
-             cache_len=0, slots=None, attn_mask=None, page_table=None):
+             long_context=False, cache_len=0, slots=None, attn_mask=None,
+             page_table=None):
     """tokens: (B, S) int. ``mode`` is "train" (no caches), "prefill"
-    (builds caches of ``cache_len`` slots) or "decode" (writes into
-    ``cache``; with ``page_table`` (B, max_pages) the cache is the shared
-    paged pool of ``init_paged_cache``). Returns (hidden (B, S, D) after the final norm, caches;
-    None in training).
+    (builds caches of ``cache_len`` slots in every layer, as the
+    reference does) or "decode" (writes into ``cache``; with
+    ``page_table`` (B, max_pages) the cache is the shared paged pool of
+    ``init_paged_cache``). Every mode attends within each layer's
+    ``_block_window``; ``long_context`` windows the global layers too.
+    With ``cfg.scale_embed`` the embeddings are multiplied by
+    sqrt(d_model) in the compute dtype. Returns (hidden (B, S, D) after
+    the final norm, caches; None in training).
 
     In training with ``cfg.remat``, each layer runs under
     ``torch.utils.checkpoint`` while gradients are recorded, so backward
     recomputes its activations (the reference's ``jax.checkpoint`` of the
     layer scan)."""
     x = embed_tokens(params["embed"], tokens).to(cfg.compute_dtype)
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     B, S = tokens.shape
+    windows = layer_windows(cfg, long_context)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
     if mode == "train":
         remat = cfg.remat and torch.is_grad_enabled()
-        for lp in params["layers"]:
+        for lp, window in zip(params["layers"], windows):
             if remat:
-                x = checkpoint(_train_layer, lp, x, positions, cfg,
+                x = checkpoint(_train_layer, lp, x, positions, cfg, window,
                                use_reentrant=False)
             else:
-                x = _train_layer(lp, x, positions, cfg)
+                x = _train_layer(lp, x, positions, cfg, window)
         return rms_norm(x, params["final_norm"], cfg.norm_eps), None
     caches = []
-    for i, lp in enumerate(params["layers"]):
+    for i, (lp, window) in enumerate(zip(params["layers"], windows)):
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         if mode == "prefill":
             y, c = attn_mod.prefill_attention(lp["attn"], h, positions, cfg,
-                                              cache_len)
+                                              cache_len, window)
         elif mode == "decode" and page_table is not None:
             y, c = attn_mod.paged_decode_attention(
-                lp["attn"], h, cache[i], page_table, positions, cfg,
+                lp["attn"], h, cache[i], page_table, positions, cfg, window,
                 slots=slots, attn_mask=attn_mask)
         elif mode == "decode":
             y, c = attn_mod.decode_attention(lp["attn"], h, cache[i],
-                                             positions, cfg, slots=slots,
-                                             attn_mask=attn_mask)
+                                             positions, cfg, window,
+                                             slots=slots, attn_mask=attn_mask)
         else:
             raise ValueError(f"mode {mode!r} is not ported")
         x = x + y

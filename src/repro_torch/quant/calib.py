@@ -5,7 +5,9 @@ Calibration needs the input activations of every matmul. The port keeps
 one parameter dict per layer and runs its layers in a Python loop, so the
 calibration forward is the model's own training forward
 (``backbone(mode="train")`` and the lm head, under ``torch.no_grad()``)
-with a capture hook installed in ``models.layers.matmul_param``. The hook
+with a capture hook installed in ``models.layers.matmul_param``; it scales
+the embeddings of a ``scale_embed`` config (Gemma-2) and windows the
+local layers, as the reference's calibration forward does. The hook
 records the per-input-channel absmax of every activation, keyed by the
 identity of the weight tensor it met; identities are then resolved to key
 paths of the parameter tree (``['layers'][0]['attn']['wq']``), the names

@@ -430,10 +430,11 @@ class ContinuousEngine:
         if not heads:
             _, st["d_cache"] = self.draft.decode_step(
                 self.draft_params, toks, positions, st["d_cache"],
-                page_table=table)
+                long_context=self.sd.long_context, page_table=table)
         out = self.target.decode_step(self.target_params, toks, positions,
-                                      st["t_cache"], page_table=table,
-                                      return_hidden=heads)
+                                      st["t_cache"],
+                                      long_context=self.sd.long_context,
+                                      page_table=table, return_hidden=heads)
         logits, st["t_cache"] = out[0], out[1]
         slot.prefill_pos = start + real
         self.telemetry.prefill_chunks += 1

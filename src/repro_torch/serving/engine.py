@@ -44,6 +44,13 @@ class ServingEngine:
     batch_size: int = 8
 
     @property
+    def long_context(self) -> bool:
+        """Windowed global attention in every model call: ``sd``'s switch,
+        the one the chain and AR paths both read (the reference's engine
+        takes a second switch that overrides it)."""
+        return self.sd.long_context
+
+    @property
     def speculative(self) -> bool:
         return self.draft is not None
 
@@ -57,7 +64,8 @@ class ServingEngine:
             return toks.cpu().numpy(), stats
         toks, dt = autoregressive_generate(
             self.target, self.target_params, prompts, max_new,
-            temperature=self.sd.temperature, top_p=self.sd.top_p, gen=gen)
+            temperature=self.sd.temperature, top_p=self.sd.top_p, gen=gen,
+            long_context=self.long_context)
         n = int(prompts.shape[0]) * max_new
         return toks.cpu().numpy(), SDStats(total_tokens=n, num_blocks=n,
                                            wall_time_s=dt)

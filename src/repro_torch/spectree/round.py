@@ -56,12 +56,18 @@ from .tree import TreeSpec, tree_attn_mask
 
 
 def _cache_view_width(cache, page_table=None) -> int:
-    """Slot count of the attention view the masks must align with: a dense
-    cache's width (the same in every layer), or a paged row's gathered view
-    of max_pages * page slots."""
+    """Slot count of the attention view the masks must align with: a paged
+    row's gathered view of max_pages * page slots, or a dense cache's width,
+    which must be the same in every layer (the reference refuses caches of
+    mixed widths, window-sized rings beside full ones, with this error)."""
     if page_table is not None:
         return page_table.shape[1] * cache[0]["page_pos"].shape[1]
-    return cache[0]["pos"].shape[1]
+    widths = {layer["pos"].shape[-1] for layer in cache}
+    if len(widths) != 1:
+        raise ValueError(
+            f"tree decoding needs one uniform attention-cache width, got "
+            f"{sorted(widths)} (mixed sliding-window caches are unsupported)")
+    return widths.pop()
 
 
 def commit_tree_path(cache, lengths, path_nodes, n_acc, num_nodes):
@@ -167,7 +173,9 @@ def tree_draft_phase(draft, sdc: SDConfig, spec: TreeSpec, d_params,
         slot_pos = lengths[:, None] + torch.arange(s, e, device=dev)[None]
         amask = tree_attn_mask(spec, s, e, lengths, width)
         logits, d_cache = draft.decode_step(d_params, level_toks[d], rope,
-                                            d_cache, slots=slot_pos,
+                                            d_cache,
+                                            long_context=sdc.long_context,
+                                            slots=slot_pos,
                                             attn_mask=amask,
                                             page_table=page_table)
         p = probs_from_logits(logits, sdc.temperature, sdc.top_p)  # (B,nl,V)
@@ -201,6 +209,7 @@ def tree_verify_phase(target: Model, sdc: SDConfig, spec: TreeSpec, t_params,
                            _cache_view_width(t_cache, page_table))
     head = "d_cache" not in draft_out
     out = target.decode_step(t_params, draft_out["node_tok"].T, rope, t_cache,
+                             long_context=sdc.long_context,
                              slots=slot_pos, attn_mask=amask,
                              page_table=page_table, return_hidden=head)
     q_node = probs_from_logits(out[0], sdc.temperature, sdc.top_p)

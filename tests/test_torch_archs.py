@@ -1,6 +1,8 @@
 """The served architectures of the registry, in reduced form, against
-``repro``: Yi-9B, Phi-4-mini, Minitron-4B, Chameleon-34B (qk-norm) and
-MusicGen's single-codebook variant, as both launchers serve it.
+``repro``: Yi-9B, Phi-4-mini, Minitron-4B, Chameleon-34B (qk-norm),
+Gemma-2-9B (local and global layers, softcaps, scaled embeddings; its
+sliding window is covered in test_torch_windows.py) and MusicGen's
+single-codebook variant, as both launchers serve it.
 
 Both packages get the same float32 weights (the reference's seeded init,
 with Chameleon's zero-initialised qk-norm weights replaced by random ones
@@ -34,7 +36,7 @@ from torch_parity import one_torch_thread, port_config  # noqa: F401
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ARCHS = ("yi-9b", "phi4-mini-3.8b", "minitron-4b", "chameleon-34b",
-         "musicgen-large")
+         "gemma2-9b", "musicgen-large")
 LOGIT_TOL = 2e-5        # of the logits' scale (max |logit|), float32
 B, S, CACHE = 2, 16, 24
 

@@ -28,7 +28,6 @@ ROOT = Path(__file__).resolve().parents[1]
 ALL = list(jcfgs.ARCHS)
 # arch -> the ROADMAP item its refusal names (ROADMAP.md §1)
 REFUSED = {
-    "gemma2-9b": "ROADMAP §1 item 2",
     "granite-moe-3b-a800m": "ROADMAP §1 item 4",
     "grok-1-314b": "ROADMAP §1 item 4",
     "zamba2-7b": "ROADMAP §1 item 5",
@@ -36,7 +35,8 @@ REFUSED = {
     "musicgen-large": "ROADMAP §1 item 3",     # K 4 through Model
 }
 SERVED = ("phi4-mini-3.8b", "minitron-4b", "chameleon-34b", "yi-9b",
-          "llama2-7b-chat", "llama2-chat-drafter-115m")   # and musicgen, K 1
+          "gemma2-9b", "llama2-7b-chat",
+          "llama2-chat-drafter-115m")                  # and musicgen, K 1
 
 
 def as_dict(cfg):
@@ -125,9 +125,7 @@ def test_refused_archs_raise_at_construction(arch, size):
 
 def test_refusal_names_each_feature():
     base = tcfgs.reduced(tcfgs.get_config("yi-9b"))
-    for over, item in ((dict(scale_embed=True), "item 2"),
-                       (dict(layer_pattern=("local_attn", "attn")), "item 2"),
-                       (dict(num_experts=4, num_experts_per_tok=2), "item 4"),
+    for over, item in ((dict(num_experts=4, num_experts_per_tok=2), "item 4"),
                        (dict(layer_pattern=("mamba",), ssm_state_dim=16), "item 5"),
                        (dict(layer_pattern=("mamba", "mamba", "shared_attn"),
                              ssm_state_dim=16, shared_attn_period=2), "item 5"),
@@ -135,9 +133,17 @@ def test_refusal_names_each_feature():
                        (dict(num_codebooks=2), "item 3")):
         with pytest.raises(ValueError, match=item):
             Model(base.replace(**over), device="cpu").init(0)
-    # softcaps and qk-norm are ported
+    # softcaps and qk-norm are ported, and since ROADMAP §1 item 2 so are
+    # scaled embeddings and local_attn layers: those configs construct
     Model(base.replace(attn_softcap=50.0, final_softcap=30.0, qk_norm=True),
           device="cpu").init(0)
+    for over in (dict(scale_embed=True),
+                 dict(layer_pattern=("local_attn", "attn"))):
+        model = Model(base.replace(**over), device="cpu")
+        params = model.init(0)
+        assert len(params["layers"]) == base.num_layers
+        assert len(model.init_cache(2, 16)) == base.num_layers
+        assert len(model.init_paged_cache(4, 16)) == base.num_layers
 
 
 @pytest.mark.parametrize("arch", sorted(set(REFUSED) - {"musicgen-large"}))
@@ -151,12 +157,12 @@ def test_serve_and_train_cli_exit_with_the_refusal(arch):
 def test_serve_cli_refusal_is_no_traceback():
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "gemma2-9b", "--reduced", "--device", "cpu"],
+         "zamba2-7b", "--reduced", "--device", "cpu"],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert proc.returncode == 1, proc
     assert "Traceback" not in proc.stderr, proc.stderr
-    assert REFUSED["gemma2-9b"] in proc.stderr, proc.stderr
+    assert REFUSED["zamba2-7b"] in proc.stderr, proc.stderr
 
 
 def test_serve_cli_serves_musicgen_single_codebook(capsys, one_torch_thread):
