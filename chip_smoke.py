@@ -15,12 +15,16 @@ Phases, each printing one JSON line and then one line of its seconds:
      hd 256 and its drafter levels at hd 128, G 2, softcap 50, at S 201
      and on a paged view of 4,352 slots whose first ~250 the window cuts,
      with null-page columns and a split wholly under the window; the paged
-     views within 1e-5 of the plain version's scale), a second
-     input set run twice for equal outputs, and its time at Llama's, Yi's
-     and Gemma's verify shapes (Gemma's drafter level and paged view too)
-     beside its bound, the plain version's and one PyTorch library call's
-     (scaled_dot_product_attention, GQA by the library, without Gemma's
-     softcap: it has none);
+     views within 1e-5 of the plain version's scale; granite-moe-3b-a800m's
+     verify at G 3, hd 64 and drafter levels at G 2, hd 64, grok-1-314b's
+     verify at G 6, hd 128 and drafter levels at G 2, both with softcap
+     30), a second input set run twice for equal outputs, and its time at
+     Llama's, Yi's, Gemma's, granite's and grok's verify shapes (Gemma's
+     and granite's drafter level and Gemma's paged view too) beside its
+     bound, the plain version's and one PyTorch library call's
+     (scaled_dot_product_attention, GQA by the library, without a softcap:
+     it has none); and the quantized matmul (int8) against its plain
+     version at granite's lm head (M 28, K 1536, N 49155: an odd N);
   3. full-width tree-speculative serving: Llama-2-7B-Chat with the 115M
      drafter in bf16, random weights from fixed seeds, 4 requests, prompt
      128, 64 new tokens, tree (2, 2), temperature 0.7; the tree attention
@@ -199,8 +203,34 @@ Phases, each printing one JSON line and then one line of its seconds:
      long_context (8,256: the global layers window at 8,192) the static
      chain and tree and the continuous engine by chain and tree, each
      equal to static AR with the same long_context; (d) the serving CLI
-     by tree at full width, launches checked.
-Phases 23 and 24 run after phase 22; phases 10, 11, 13-15, 18 and 21 run before
+     by tree at full width, launches checked;
+ 25. mixture of experts (after phase 24, once Gemma is freed): (a)
+     granite-moe-3b-a800m at full width (32 layers, d 1536, 24 heads on 8
+     KV heads at hd 64, 40 experts top-8 of width 512, V 49155; 3.374B
+     parameters) with its dense drafter (4 layers, d 512; 62.1M) in bf16
+     from seeds 0/1, tree (2, 2) and chain gamma 3 over 4 x (128 + 64) at
+     temperature 0.7: 32 + 4 * 3 = 44 tree_attention launches a tree round
+     and no other kernel (the experts are batched matmuls, as the
+     reference's einsums), tau, tok/s, host and device ms per round, the
+     device shares of the expert matmuls and of the dispatch
+     (torch.profiler), the (token, expert) assignments dropped per verify
+     pass (counted here by a wrapper, at the config's capacity factor
+     1.25), and one input through the full forward twice for equal bits;
+     (b) the first 8 requests of phase 16's chat stream through 4 slots
+     of the continuous engine by tree with the prefix cache; (c) int8
+     weights on both models (granite's attention projections and lm head
+     through quant_matmul, its experts and routers at full precision),
+     launches asserted, stored bytes beside quant.roofline's model; (d)
+     greedy exactness with 2 float32 target layers at published widths at
+     capacity factor E / k (nothing drops): chain and tree equal to AR for
+     granite (static and continuous) and grok-1-314b (d 6144, 8 experts
+     top-2 of width 32768, softcap 30, V 131072; 46 GB), and at 1.25 the
+     drops and the agreement with AR printed, asserted neither; (e) 2
+     TVD++ steps of granite's drafter against the frozen bf16 target
+     through the distill kernels at V 49155, launches asserted, one step's
+     kernel route against the plain route as in phase 7; (f) the serving
+     CLI by tree at full width, launches checked.
+Phases 23-25 run after phase 22; phases 10, 11, 13-15, 18 and 21 run before
 phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
@@ -370,7 +400,10 @@ def check_paged_tree_cases(gen):
     verify pass (Hkv 8, N 7, G 2, hd 256) and the drafter levels (Hkv 4,
     N 1/2/4, G 2, hd 128) at B 4, and both at B 1, whose plan splits the
     slots finely enough that a whole split lies under the window: at least
-    one split must be wholly masked there."""
+    one split must be wholly masked there. granite-moe-3b-a800m's on views
+    of 19 pages (phase 25b): the verify pass (Hkv 8, N 7, G 3, hd 64) and
+    the drafter levels (Hkv 4, N 1/2/4, G 2, hd 64), at B 4 (rows 2-3
+    inactive) and B 1, bf16 and fp32."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import tree_attention as tk
     bf, f32 = torch.bfloat16, torch.float32
@@ -393,8 +426,15 @@ def check_paged_tree_cases(gen):
                  ("gemma-drafter-level-paged", 4, 4, 4, 128, f32),
                  ("gemma-drafter-level-paged", 1, 4, 4, 128, bf),
                  ("gemma-drafter-level-paged", 1, 4, 4, 128, f32))]
+    granite = [(label, B, Hkv, N, G, 64, 304, dt, None if B == 4 else [285],
+                None)
+               for label, Hkv, N, G in (("granite-verify-paged", 8, 7, 3),
+                                        ("granite-drafter-level-paged", 4, 1, 2),
+                                        ("granite-drafter-level-paged", 4, 2, 2),
+                                        ("granite-drafter-level-paged", 4, 4, 2))
+               for B in (4, 1) for dt in (bf, f32)]
     results = []
-    for label, B, Hkv, N, G, hd, S, dtype, lens, window in llama + gemma:
+    for label, B, Hkv, N, G, hd, S, dtype, lens, window in llama + gemma + granite:
         q, k, v, mask = paged_tree_inputs(gen, B, Hkv, N, hd, S, dtype, G=G,
                                           lens=lens, window=window)
         cap = GEMMA_SOFTCAP if window else None
@@ -422,7 +462,7 @@ def check_paged_tree_cases(gen):
                                  f"version on a paged view: {results[-1]}")
     assert any(r["splits"] > 1 for r in results[:len(llama)]), results
     assert any(r["wholly_masked_splits"] > 0
-               for r in results[len(llama):]), results
+               for r in results[len(llama):len(llama) + len(gemma)]), results
     return results
 
 
@@ -532,6 +572,17 @@ def phase2_kernels():
           for dt in (bf, f32)],
         *[("gemma-drafter-level", 4, 4, N, 2, 128, 201, dt, GEMMA_SOFTCAP)
           for N, dt in ((1, bf), (2, bf), (4, bf), (4, f32))],
+        # the MoE archs (phase 25): granite-moe-3b-a800m's verify (24 heads
+        # on 8, G 3, hd 64) and drafter levels (8 on 4, G 2), grok-1-314b's
+        # verify (48 on 8, G 6, hd 128, softcap 30) and drafter levels (16
+        # on 8, G 2; the drafter keeps the softcap)
+        *[("granite-verify", 4, 8, 7, 3, 64, 201, dt, None) for dt in (bf, f32)],
+        *[("granite-drafter-level", 4, 4, N, 2, 64, 201, dt, None)
+          for N, dt in ((1, bf), (2, bf), (4, bf), (4, f32))],
+        *[("grok-verify", 4, 8, 7, 6, 128, 201, dt, GROK_SOFTCAP)
+          for dt in (bf, f32)],
+        *[("grok-drafter-level", 4, 8, N, 2, 128, 201, dt, GROK_SOFTCAP)
+          for N, dt in ((1, bf), (2, bf), (4, bf), (4, f32))],
     ]
     results = []
     for label, B, Hkv, N, G, hd, S, dtype, cap in cases:
@@ -561,6 +612,7 @@ def phase2_kernels():
                                      tk.tree_attention(*second))
     assert deterministic, "tree_attention differs between two runs"
     paged = check_paged_tree_cases(gen)
+    granite_quant = check_granite_quant_cases(gen)
 
     # timing at the main path's shape (Llama's verify, bf16, S 201), at
     # Yi-9B's (G 8) and at Gemma-2-9B's (hd 256 and its drafter's levels,
@@ -578,6 +630,8 @@ def phase2_kernels():
                 gen, B, Hkv, N, hd, GEMMA_VIEW, torch.bfloat16, G=2,
                 lens=[GEMMA_VIEW - 1 - 16 * b for b in range(B)],
                 window=GEMMA_WINDOW))
+    moe = {name: time_tree(gen, 4, Hkv, N, G, hd, 201, softcap=cap)
+           for name, Hkv, N, G, hd, cap in MOE_TREE_TIMING}
     emit({"phase": 2, "cases": results, "paged_cases": paged,
           "deterministic": deterministic,
           "timing_shape": "B4 Hkv32 N7 G1 hd128 S201 bf16, 8 input sets",
@@ -588,7 +642,13 @@ def phase2_kernels():
                         "hd256, drafter level Hkv4 N4 hd128; S 201 (random "
                         "masks) and the paged view of 4,352 slots past the "
                         "window; library: SDPA without the softcap (it has "
-                        "none)", **gemma}})
+                        "none)", **gemma},
+          "moe_timing": {
+              "shapes": "B4 S201 bf16, 8 input sets: granite verify Hkv8 N7 "
+                        "G3 hd64, granite drafter level Hkv4 N4 G2 hd64, grok "
+                        "verify Hkv8 N7 G6 hd128 softcap 30; library: SDPA "
+                        "without the softcap", **moe},
+          "quant_matmul_granite": granite_quant})
     return {"tree_attention": {"max_abs_err": results[0]["max_abs_err"],
                                "ms": llama["device_ms"]["kernel"],
                                "plain_ms": llama["device_ms"]["plain"],
@@ -610,7 +670,61 @@ def phase2_kernels():
                                        "bound_ms": t["bound_ms"],
                                        "bound_by": t["bound_by"],
                                        "library_ms": t["device_ms"]["library"]}
-                                   for k, t in gemma.items()}}}
+                                   for k, t in gemma.items()},
+                               "moe": {
+                                   k: {"max_abs_err": next(
+                                           r["max_abs_err"] for r in results
+                                           if r["case"] == k.replace("_", "-")),
+                                       "ms": t["device_ms"]["kernel"],
+                                       "plain_ms": t["device_ms"]["plain"],
+                                       "bound_ms": t["bound_ms"],
+                                       "bound_by": t["bound_by"],
+                                       "library_ms": t["device_ms"]["library"]}
+                                   for k, t in moe.items()}}}
+
+
+GROK_SOFTCAP = 30.0
+MOE_TREE_TIMING = (  # (name, Hkv, N, G, hd, softcap) timed at B 4, S 201
+    ("granite_verify", 8, 7, 3, 64, None),
+    ("granite_drafter_level", 4, 4, 2, 64, None),
+    ("grok_verify", 8, 7, 6, 128, GROK_SOFTCAP))
+GRANITE_QUANT_SHAPES = {   # (label, K, N) of every quantized matmul of 25c
+    "target": [("wq/wo", 1536, 1536), ("wk/wv", 1536, 512),
+               ("lm_head", 1536, 49155)],
+    "drafter": [("wq/wo", 512, 512), ("wk/wv", 512, 256),
+                ("w_gate/w_up", 512, 1408), ("w_down", 1408, 512),
+                ("lm_head", 512, 49155)]}
+
+
+def check_granite_quant_cases(gen):
+    """``quant_matmul`` int8 against its plain version at every (K, N) of
+    phase 25c's quantized granite target and drafter (``granite_int8``
+    holds the models' weights to this table; the lm heads are the first
+    quantized weights of a served path with an odd N), at the M of every
+    pass 25c runs (``quant_pass_rows``: drafter levels and chain steps 4,
+    8, 16, chain verify 16, tree verify 28, prefill 512), with and without
+    an AWQ pre-scale, x in bf16 and float32."""
+    rows = quant_pass_rows()
+    worst, n_cases = {}, 0
+    for model, lst in GRANITE_QUANT_SHAPES.items():
+        for name, K, N in lst:
+            for awq in (False, True):
+                qw = quant_weight(gen, K, N, 8, awq)
+                for M in rows:
+                    x = torch.randn((M, K), generator=gen, device="cuda")
+                    for dtype in (torch.bfloat16, torch.float32):
+                        err, tol, ok = check_quant_case(x.to(dtype), qw)
+                        n_cases += 1
+                        key = f"{model}:{name}"
+                        worst[key] = max(worst.get(key, 0.0),
+                                         err / tol * QUANT_TOL)
+                        assert ok, ("quant_matmul disagrees with its plain "
+                                    "version at a granite shape", model, name,
+                                    K, N, M, awq, str(dtype), err, tol)
+                del qw
+    return {"cases": n_cases, "M": rows, "awq": [False, True],
+            "x": ["bfloat16", "float32"], "tolerance_rel": QUANT_TOL,
+            "worst_rel_err": worst}
 
 
 def sdpa_tree(q, k, v, mask):
@@ -664,6 +778,8 @@ def time_tree(gen, B, Hkv, N, G, hd, S, softcap=None, make=None, iters=200):
 
 
 def phase3_tree_serving(models, smi, phase=3):
+    """Tree serving of 4 x (128 + 64) at 0.7, the launches asserted.
+    Returns (the launches, ``profile_tree``'s breakdown)."""
     from repro_torch.core.metrics import mbsu
     from repro_torch.core.speculative import SDConfig
     from repro_torch.kernels import ops
@@ -700,7 +816,7 @@ def phase3_tree_serving(models, smi, phase=3):
           "depth_acceptance": stats.depth_acceptance(),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "where_the_time_goes": breakdown, "nvidia_smi": smi})
-    return launches
+    return launches, breakdown
 
 
 def profile_tree(models, prompts, sdc, spec, wall_ms_per_round):
@@ -708,25 +824,40 @@ def profile_tree(models, prompts, sdc, spec, wall_ms_per_round):
     tree run (8 new tokens, about 6 rounds) under torch.profiler, against
     the unprofiled host time of a round. The profiler records the
     device's activity only: with the host's ops recorded too it took 2.5
-    to 4 times as long for the same device times. Prints None where the
-    profiler saw no device activity."""
+    to 4 times as long for the same device times. An MoE target is the
+    exception: the host's ops and the ranges of ``moe_ranges`` are
+    recorded too, so that the same trace gives ``moe_shares``. Prints
+    None where the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     target, t_params, draft, d_params, _ = models
+    moe = target.cfg.is_moe
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with (moe_ranges() if moe else contextlib.nullcontext()), \
+            profile(activities=acts) as prof:
         _, stats = serve.serve_tree(target, t_params, draft, d_params, prompts,
                                     8, sdc, spec, seed=2)
         torch.cuda.synchronize()
-    return kernel_breakdown(prof, stats.rounds, wall_ms_per_round)
+    out = kernel_breakdown(prof, stats.rounds, wall_ms_per_round)
+    if moe and out.get("profiled", True) is not None:
+        out["moe"] = moe_shares(prof, stats.rounds)
+    return out
+
+
+def device_kernels(prof):
+    """The profile's device events by name, without the device-side copies
+    of ``record_function`` ranges (they span kernels already counted)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def kernel_breakdown(prof, rounds, wall_ms_per_round):
     """Device time by kernel of ``rounds`` profiled rounds against the
     unprofiled host time of a round. None where the profiler saw no device
     activity."""
-    from torch.autograd import DeviceType
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     total_us = sum(e.self_device_time_total for e in kernels)
     if not kernels or total_us <= 0:
         return {"profiled": None}
@@ -784,7 +915,8 @@ def phase4_chain_serving(models, smi, phase=4, ar=True):
     return chain_launches
 
 
-def greedy_exactness(arch, P, M, chain=True, continuous=False):
+def greedy_exactness(arch, P, M, chain=True, continuous=False, over=None,
+                     probe=None):
     """Temperature 0 with the arch's target cut to 2 layers in float32 and
     its drafter (float32) at published widths: tree (2, 2) and, with
     ``chain``, chain gamma 3 tokens over 2 prompts of P tokens must equal
@@ -793,7 +925,10 @@ def greedy_exactness(arch, P, M, chain=True, continuous=False):
     target as its own drafter (every path accepted, tau above 2); with
     ``continuous`` also the
     continuous engine, chain and tree, 4 requests of different lengths
-    through 2 slots, against each request's greedy tokens."""
+    through 2 slots, against each request's greedy tokens. ``over``
+    replaces fields of the target's config; ``probe(target, t_params,
+    draft, d_params, prompt, M)`` adds its dict to the result before the
+    models are freed."""
     from repro_torch.configs import get_config
     from repro_torch.core.speculative import (SDConfig, autoregressive_generate,
                                               speculative_generate)
@@ -803,7 +938,8 @@ def greedy_exactness(arch, P, M, chain=True, continuous=False):
     from repro_torch.serving import ContinuousEngine, ServeRequest
     from repro_torch.spectree.round import tree_speculative_generate
     from repro_torch.spectree.tree import TreeSpec
-    cfg = get_config(arch).replace(num_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(num_layers=2, dtype="float32",
+                                   **(over or {}))
     target = Model(cfg, "cuda")
     t_params = target.init(0)
     draft = Model(cfg.drafter(), "cuda")
@@ -858,6 +994,8 @@ def greedy_exactness(arch, P, M, chain=True, continuous=False):
             out[f"{name}_equals_ar"] = all(np.array_equal(got[i], greedy[i])
                                            for i in greedy)
             ok &= engine.telemetry.max_queue_depth >= 1   # staggered admission
+    if probe is not None:
+        out.update(probe(target, t_params, draft, d_params, prompt, M))
     del target, draft, t_params, d_params
     torch.cuda.empty_cache()
     return out, ok and all(v for k, v in out.items() if k.endswith("_equals_ar"))
@@ -1572,8 +1710,9 @@ def check_bf16_weight_copy(gen):
 
 
 def quant_passes(cfg) -> int:
-    """Quantized matmul launches per forward pass: 7 per layer + lm head."""
-    return 7 * cfg.num_layers + 1
+    """Quantized matmul launches per forward pass: 7 per layer (4 in an MoE
+    layer: its experts and router stay full precision) + lm head."""
+    return (4 if cfg.is_moe else 7) * cfg.num_layers + 1
 
 
 def phase10_quant_serving(smi, weights):
@@ -3218,7 +3357,7 @@ def phase23_archs(smi):
           "kv_heads": target.cfg.num_kv_heads, "G": target.cfg.q_per_kv,
           "resident_before_gb": resident_gb,
           "weights_gb": torch.cuda.memory_allocated() / 1e9 - resident_gb})
-    tree = phase3_tree_serving(models, smi, phase="23a")
+    tree, _ = phase3_tree_serving(models, smi, phase="23a")
     chain = phase4_chain_serving(models, smi, phase="23a", ar=False)
     assert all(n == 0 for k, n in tree.items() if k != "tree_attention"), tree
     assert not any(chain.values()), chain
@@ -3412,7 +3551,7 @@ def phase24_gemma(smi):
           "softcaps": [cfg.attn_softcap, cfg.final_softcap],
           "resident_before_gb": resident_gb,
           "weights_gb": torch.cuda.memory_allocated() / 1e9 - resident_gb})
-    tree = phase3_tree_serving(models, smi, phase="24a")
+    tree, _ = phase3_tree_serving(models, smi, phase="24a")
     chain = phase4_chain_serving(models, smi, phase="24a", ar=False)
     assert all(n == 0 for k, n in tree.items() if k != "tree_attention"), tree
     assert not any(chain.values()), chain
@@ -3427,6 +3566,410 @@ def phase24_gemma(smi):
     emit({"phase": "24d", "cli": arch_clis(((GEMMA, False),), phase="24d"),
           "nvidia_smi": smi})
     return tree["tree_attention"] + long_launches
+
+
+# ------------------------------------------------ mixture of experts (25)
+
+GRANITE, GROK = "granite-moe-3b-a800m", "grok-1-314b"
+MOE_TVD = dict(batch=2, seq=1024, steps=2)        # 25e, 2 loss chunks a row
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """The MoE layers' dropped (token, expert) assignments, counted by a
+    wrapper around ``models.moe._dispatch``: a list of (tokens of the
+    call, dropped assignments as a device tensor) per layer call."""
+    from repro_torch.models import moe
+    calls, dispatch = [], moe._dispatch
+
+    def spy(experts, E, C):
+        slot = dispatch(experts, E, C)
+        calls.append((experts.shape[0], (slot == E * C).sum()))
+        return slot
+
+    moe._dispatch = spy
+    try:
+        yield calls
+    finally:
+        moe._dispatch = dispatch
+
+
+MOE_RANGES = {"_moe_local": "moe_layer", "_route": "moe_route",
+              "_expert_ffn": "moe_expert_matmuls"}
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Every call of ``models.moe``'s ``_moe_local``, ``_route`` and
+    ``_expert_ffn`` inside a torch.profiler range named as in
+    ``MOE_RANGES``, by wrappers installed here for the run (not a feature
+    of the package)."""
+    from torch.profiler import record_function
+    from repro_torch.models import moe
+    saved = {name: getattr(moe, name) for name in MOE_RANGES}
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with record_function(MOE_RANGES[name]):
+                return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(moe, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+
+
+def moe_shares(prof, rounds):
+    """Device ms a round of the kernels launched under each range of
+    ``moe_ranges`` and their share of the profile's device time: the
+    expert matmuls (``_expert_ffn``'s three bmm), the routing (``_route``:
+    the router matmul, softmax, top-k, renormalisation) and the dispatch
+    (the rest of ``_moe_local``: sort, searchsorted, slot numbering, the
+    buffer's copy, the gather and the combine)."""
+    from torch.autograd import DeviceType
+    total_us = sum(e.self_device_time_total for e in device_kernels(prof))
+    us = {r: sum(e.device_time_total for e in prof.events()
+                 if e.name == r and e.device_type == DeviceType.CPU)
+          for r in MOE_RANGES.values()}
+    parts = {"expert_matmuls": us["moe_expert_matmuls"],
+             "routing": us["moe_route"],
+             "dispatch": us["moe_layer"] - us["moe_expert_matmuls"]
+                         - us["moe_route"],
+             "moe_layers": us["moe_layer"]}
+    calls = sum(1 for e in prof.events()
+                if e.name == "moe_layer" and e.device_type == DeviceType.CPU)
+    return {"layer_calls_per_round": calls / rounds,
+            **{f"{k}_ms_per_round": v / 1e3 / rounds for k, v in parts.items()},
+            **{f"share_{k}": v / total_us for k, v in parts.items()}}
+
+
+def drops_per_pass(calls, cfg):
+    """{tokens of a pass: {passes, the (token, expert) assignments of a
+    pass over all its MoE layers, those dropped, their share}} from
+    ``moe_drops``' calls."""
+    out = {}
+    for n, dropped in calls:
+        row = out.setdefault(int(n), [0, 0])
+        row[0] += 1
+        row[1] += int(dropped)
+    L, k = cfg.num_layers, cfg.num_experts_per_tok
+    return {n: {"passes": c // L, "assignments": n * k * L,
+                "dropped": d / (c // L), "dropped_share": d / (c * n * k)}
+            for n, (c, d) in sorted(out.items())}
+
+
+def moe_layer_ms(models, tokens=28):
+    """A per-layer reading, apart from the profiled round: device ms of one
+    MoE layer (``_moe_local``) at the tree verify's shape (4 rows x 7
+    nodes, random inputs), and of its expert matmuls alone
+    (``_expert_ffn`` on an (E, C, d) buffer of that call's capacity), in
+    CUDA graphs of 64 calls rotating over the target's layers (6 GB of
+    experts: every call reads its weights from memory) and 8 inputs; the
+    rest of the layer (routing, sort, copies, gathers, combine) is the
+    difference."""
+    from repro_torch.models import moe
+    target, t_params = models[:2]
+    cfg, dev = target.cfg, target.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    layers = [lp["moe"] for lp in t_params["layers"]]
+    C = moe.capacity(tokens, cfg)
+    xs = [torch.randn((tokens, cfg.d_model), generator=gen, device=dev)
+          .to(cfg.compute_dtype) for _ in range(8)]
+    bufs = [torch.randn((cfg.num_experts, C, cfg.d_model), generator=gen,
+                        device=dev).to(cfg.compute_dtype) for _ in range(8)]
+    it = iter(range(10 ** 9))
+
+    def layer_call():
+        i = next(it)
+        return moe._moe_local(layers[i % len(layers)], xs[i % 8], cfg)
+
+    def experts_call():
+        i = next(it)
+        p = layers[i % len(layers)]
+        return moe._expert_ffn(p["w_gate"], p["w_up"], p["w_down"], bufs[i % 8])
+
+    layer_ms = graph_ms(layer_call, iters=64)
+    expert_ms = graph_ms(experts_call, iters=64)
+    expert_bytes = 3 * cfg.num_experts * cfg.d_model * cfg.d_ff * 2
+    return {"tokens": tokens, "capacity": C, "layer_ms": layer_ms,
+            "expert_matmuls_ms": expert_ms,
+            "routing_and_dispatch_ms": layer_ms - expert_ms,
+            "expert_bytes_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def granite_int8(smi):
+    """25c: granite and its drafter drawn in float32, AWQ-calibrated and
+    quantized to int8 weights (the attention projections and lm heads;
+    experts and routers stay full precision, routers in float32), KV in
+    bf16; tree (2, 2) over 4 x (128 + 32) at 0.7 with the launches
+    asserted: tree_attention 44 a round, quant_matmul 4 * 32 + 1 a target
+    pass and 7 * 4 + 1 a drafter pass, no other kernel."""
+    from repro_torch.configs import QuantConfig
+    from repro_torch.core.speculative import SDConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.quant import decode_step_bytes, params_nbytes
+    from repro_torch.quant.qweight import QWeight
+    from repro_torch.spectree.tree import TreeSpec
+    B, P, NEW = 4, 128, 32
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = serve.build_models(GRANITE, False, "cuda",
+                                QuantConfig(weights="int8"), quant_target=True,
+                                calib_seqs=4, calib_len=P)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    target, t_params, draft, d_params, c = models
+    layer = t_params["layers"][0]
+    assert all(isinstance(layer["attn"][n], QWeight) for n in ("wq", "wk", "wv", "wo"))
+    assert isinstance(t_params["lm_head"], QWeight)
+    assert layer["moe"]["router"].dtype == torch.float32
+    for name, m, p in (("target", target, t_params), ("drafter", draft, d_params)):
+        have = {(w.in_dim, w.out_dim) for w in _leaves(p) if isinstance(w, QWeight)}
+        want = {(K, N) for _, K, N in GRANITE_QUANT_SHAPES[name]}
+        assert have == want, (name, have, want)    # phase 2 held every shape
+    assert all(layer["moe"][n].dtype == torch.bfloat16
+               for n in ("w_gate", "w_up", "w_down"))
+    stored = {"target": params_nbytes(t_params), "drafter": params_nbytes(d_params)}
+    modeled = {name: dict(zip(("weight", "scale", "kv", "total"),
+                              decode_step_bytes(m.cfg, B, P + NEW, "int8",
+                                                "bfloat16").row()))
+               for name, m in (("target", target), ("drafter", draft))}
+    spec = TreeSpec((2, 2))
+    sdc = SDConfig(gamma=3, temperature=0.7)
+    prompts = serve.make_prompts(B, P, target.cfg.vocab_size)
+    serve.serve_tree(target, t_params, draft, d_params, prompts, 8, sdc, spec,
+                     seed=1)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    toks, stats = serve.serve_tree(target, t_params, draft, d_params, prompts,
+                                   NEW, sdc, spec)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    R = stats.rounds
+    pt, pd = quant_passes(target.cfg), quant_passes(draft.cfg)
+    want = {k: 0 for k in launches}
+    want["tree_attention"] = R * tree_launches_per_round(target, draft, spec)
+    want["quant_matmul_int8"] = (1 + R) * pt + (1 + (spec.depth + 1) * R) * pd
+    assert R > 0 and launches == want, (launches, want)
+    new = toks[:, P:P + NEW]
+    assert bool(((new >= 0) & (new < target.cfg.vocab_size)).all())
+    assert stats.tau >= 1.0 and math.isfinite(stats.tau), stats.tau
+    emit({"phase": "25c", "arch": target.cfg.name, "weights": "int8",
+          "quantized": ["target", "drafter"], "build_s": build_s,
+          "build_peak_gb": build_peak_gb, "stored_bytes": stored,
+          "modeled_decode_step_bytes": modeled,
+          "note": "the model bills experts and embeddings at param_dtype "
+                  "(float32), as the reference's does; they are stored in bf16",
+          "tree": {"rounds": R, "tau": stats.tau, "tok_s": stats.tokens_per_s(),
+                   "wall_s": stats.wall_time_s, "launches": launches,
+                   "quant_matmul_per_round": (launches["quant_matmul_int8"]
+                                              - pt - pd) / R},
+          "launches_per_pass": {"target": pt, "drafter": pd},
+          "requests": B, "prompt_len": P, "max_new": NEW, "temperature": 0.7,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "nvidia_smi": smi})
+    return launches["quant_matmul_int8"]
+
+
+def drops_probe(cf):
+    """A ``greedy_exactness`` probe: on the same weights at capacity factor
+    ``cf``, greedy AR, chain (gamma 3) and tree (2, 2) tokens, the
+    assignments dropped per pass and the share of the speculative tokens
+    equal to AR's (reported, not asserted: drops make a token depend on
+    its batchmates)."""
+    def probe(target, t_params, draft, d_params, prompt, M):
+        from repro_torch.core.speculative import (SDConfig,
+                                                  autoregressive_generate,
+                                                  speculative_generate)
+        from repro_torch.models.model import Model
+        from repro_torch.spectree.round import tree_speculative_generate
+        from repro_torch.spectree.tree import TreeSpec
+        tm = Model(target.cfg.replace(moe_capacity_factor=cf), target.device)
+        P = prompt.shape[1]
+        sdc = SDConfig(gamma=3, temperature=0.0)
+        out = {"cf": cf}
+        with moe_drops() as calls:
+            ar, _ = autoregressive_generate(tm, t_params, prompt, M,
+                                            temperature=0.0)
+        out["ar_drops"] = drops_per_pass(calls, tm.cfg)
+        for name, run in (
+                ("chain", lambda: speculative_generate(
+                    draft, tm, d_params, t_params, prompt, M, sdc)),
+                ("tree", lambda: tree_speculative_generate(
+                    draft, tm, d_params, t_params, prompt, M, sdc,
+                    TreeSpec((2, 2))))):
+            with moe_drops() as calls:
+                toks, _ = run()
+            out[f"{name}_drops"] = drops_per_pass(calls, tm.cfg)
+            out[f"{name}_agreement_with_ar"] = (
+                toks[:, P:P + M] == ar[:, P:P + M]).float().mean().item()
+        return {f"at_cf_{cf}": out}
+    return probe
+
+
+def moe_tvdpp(smi):
+    """25e: TVD++ steps of granite's drafter (float32 master weights)
+    against the frozen bf16 granite target through the distill kernels at
+    V 49155 (rows of 196,620 bytes: the kernels' unaligned route), launch
+    counts asserted, then one step's kernel route against the plain route
+    as phase 7 compares them."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.training import finetune, make_train_state
+    B, S, steps = MOE_TVD["batch"], MOE_TVD["seq"], MOE_TVD["steps"]
+    cfg = get_config(GRANITE)
+    target = Model(cfg, "cuda")
+    t_params = target.init(0)                               # bf16, frozen
+    draft = Model(cfg.drafter().replace(vocab_size=cfg.vocab_size), "cuda")
+    tc = TrainConfig(warmup_steps=2, total_steps=100)
+    state = make_train_state(draft, 1, tc)
+    V = cfg.vocab_size
+    assert (V * 4) % 16 != 0
+    data = serve.make_prompts(4, S, V, seed=10)
+    batches = iter([data[i:i + B] for i in range(0, 4, B)])
+    t_sum, d_before = param_checksum(t_params), param_checksum(state["params"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, hist = finetune(draft, target, state, t_params, batches, tc, steps,
+                           "tvdpp", log_every=1, use_kernels=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    n = S // 512                                # loss chunks per step
+    per_step = {k: 0 for k in launches}
+    per_step.update(row_logsumexp=6 * n, loss_terms=3 * n, loss_grad=n)
+    assert launches == {k: v * steps for k, v in per_step.items()}, launches
+    assert all(math.isfinite(h["loss"]) for h in hist), hist
+    assert param_checksum(t_params) == t_sum, "target parameters changed"
+    assert param_checksum(state["params"]) != d_before, "drafter did not move"
+    tokens = torch.as_tensor(data[:B], dtype=torch.long, device=target.device)
+    routes = compare_routes(draft, target, state["params"], t_params, tokens,
+                            loss_rtol=1e-4, grad_rtol=2e-2)
+    emit({"phase": "25e", "arch": cfg.name, "drafter": draft.cfg.name,
+          "vocab": V, "batch": [B, S], "steps": steps,
+          "loss": [h["loss"] for h in hist], "wall_s": wall_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "launches_per_step": per_step,
+          "kernel_vs_plain": routes, "nvidia_smi": smi})
+    assert routes["ok"], routes
+    del target, draft, t_params, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase25_moe(smi):
+    """Mixture of experts on the card (after phase 24, once Gemma is
+    freed). (a) granite-moe-3b-a800m at full width (32 layers, d 1536, 24
+    heads on 8 KV heads at hd 64, 40 experts top-8 of width 512, V 49155;
+    3.374B parameters) with its dense drafter (4 layers, d 512; 62.1M) in
+    bf16 from seeds 0/1: tree (2, 2) and chain gamma 3 over 4 x (128 + 64)
+    at 0.7, 32 + 4 * 3 = 44 tree_attention launches a tree round and no
+    other kernel, where the time goes (torch.profiler: the expert matmuls'
+    and the dispatch's shares), the assignments dropped per verify pass
+    (counted here), and one input run twice through a full-width forward
+    for equal bits; (b) the first 8 requests of phase 16's chat stream
+    through 4 slots of the continuous engine by tree with the prefix cache;
+    (c) int8 weights (``granite_int8``); (d) greedy exactness with 2
+    float32 target layers at published widths at capacity factor E / k,
+    where nothing drops, for granite (static and continuous) and
+    grok-1-314b (static; d 6144, 8 experts top-2 of width 32768, softcap
+    30, V 131072: 46 GB), and at 1.25 the drops and the agreement with AR
+    printed, asserted neither; (e) TVD++ steps of granite's drafter
+    (``moe_tvdpp``); (f) the serving CLI by tree at full width. Returns
+    (the tree_attention launches of (a) and (b), the launches of (c) and
+    (e))."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.speculative import SDConfig
+    from repro_torch.launch import serve
+    from repro_torch.spectree.tree import TreeSpec
+    spec, sdc = TreeSpec((2, 2)), SDConfig(gamma=3, temperature=0.7)
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    models = serve.build_models(GRANITE, False, "cuda")
+    target, t_params, draft, d_params, c = models
+    cfg = target.cfg
+    c_cfg = draft.cfg.param_count() / cfg.param_count()
+    assert c == c_cfg, (c, c_cfg)          # param_count matches the init
+    per_round = tree_launches_per_round(target, draft, spec)
+    assert per_round == 44, per_round
+    emit({"phase": "25a", "arch": cfg.name, "drafter": draft.cfg.name,
+          "params": cfg.param_count(), "drafter_params":
+          draft.cfg.param_count(), "c": c, "experts": cfg.num_experts,
+          "top_k": cfg.num_experts_per_tok, "expert_d_ff": cfg.d_ff,
+          "capacity_factor": cfg.moe_capacity_factor,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "G": cfg.q_per_kv, "head_dim": cfg.head_dim_,
+          "router_dtype": str(t_params["layers"][0]["moe"]["router"].dtype),
+          "resident_before_gb": resident_gb,
+          "weights_gb": torch.cuda.memory_allocated() / 1e9 - resident_gb})
+    tree, breakdown = phase3_tree_serving(models, smi, phase="25a")
+    chain = phase4_chain_serving(models, smi, phase="25a", ar=False)
+    assert all(n == 0 for k, n in tree.items() if k != "tree_attention"), tree
+    assert not any(chain.values()), chain
+    prompts = serve.make_prompts(4, 128, cfg.vocab_size)
+    with moe_drops() as calls:
+        serve.serve_tree(target, t_params, draft, d_params, prompts, 16, sdc,
+                         spec, seed=4)
+    tree_drops = drops_per_pass(calls, cfg)
+    with moe_drops() as calls:
+        serve.serve_static(target, t_params, draft, d_params, prompts, 16,
+                           sdc, seed=4)
+    chain_drops = drops_per_pass(calls, cfg)
+    x = torch.as_tensor(prompts[:, :64], device=target.device)
+    first = target.logits(t_params, x)
+    again = target.logits(t_params, x)
+    same_bits = torch.equal(first, again)
+    emit({"phase": "25a", "arch": cfg.name,
+          "moe_shares_of_the_profiled_tree_round": breakdown.get("moe"),
+          "moe_layer_alone_in_graphs": moe_layer_ms(models),
+          "dropped_per_pass": {
+              "note": "by the tokens of a pass: 28 = the tree verify (4 x "
+                      "7), 16 = the chain verify (4 x 4), 512 = the "
+                      "prefill, 4 = AR steps; over its 32 layers",
+              "tree": tree_drops, "chain": chain_drops},
+          "forward_twice_equal_bits": same_bits, "nvidia_smi": smi})
+    assert same_bits, "one input run twice gave different logits"
+    cont, _ = continuous_pass(models, sdc, spec, prefix=True, kv_quant=False,
+                              n=SHORT_N, max_batch=SHORT_BATCH)
+    emit({"phase": "25b", "arch": cfg.name, "mix": CONT_MIX,
+          "requests": SHORT_N, "arrival_rate": CONT_RATE,
+          "engine": {**CONT_ENGINE, "max_batch": SHORT_BATCH},
+          "temperature": 0.7, "pass": cont, "nvidia_smi": smi})
+    del models, target, draft, t_params, d_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant_launches = granite_int8(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, continuous in ((GRANITE, True), (GROK, False)):
+        full = get_config(arch)
+        no_drops = full.num_experts / full.num_experts_per_tok
+        out, ok = greedy_exactness(
+            arch, 64, 16, chain=True, continuous=continuous,
+            over={"moe_capacity_factor": no_drops},
+            probe=drops_probe(full.moe_capacity_factor))
+        emit({"phase": "25d", "capacity_factor": no_drops, **out})
+        assert ok, ("MoE greedy tokens differ from AR where nothing drops, "
+                    "or tree launches are off", out)
+        gc.collect()
+        torch.cuda.empty_cache()
+    distill_launches = moe_tvdpp(smi)
+    emit({"phase": "25f", "cli": arch_clis(((GRANITE, False),), phase="25f"),
+          "nvidia_smi": smi})
+    moe_launches = {**distill_launches, "quant_matmul_int8": quant_launches}
+    return tree["tree_attention"] + cont["launches"]["tree_attention"], \
+        moe_launches
 
 
 PHASE_SECONDS = {}
@@ -3461,7 +4004,7 @@ def main():
     smi = timed(1, phase1_device_and_build)
     timings = timed(2, phase2_kernels)
     models = timed("build", serve.build_models, "llama2-7b-chat", False, "cuda")
-    launches = timed(3, phase3_tree_serving, models, smi)
+    launches, _ = timed(3, phase3_tree_serving, models, smi)
     chain_launches = timed(4, phase4_chain_serving, models, smi)
     # the reference never dispatches flash decode on its serving path
     serving_fd = launches["flash_decode"] + chain_launches["flash_decode"]
@@ -3479,6 +4022,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     arch_launches += timed(24, phase24_gemma, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_tree, moe_launches = timed(25, phase25_moe, smi)
+    arch_launches += moe_tree
     torch.cuda.empty_cache()
     timed(5, phase5_greedy_exactness)
     torch.cuda.empty_cache()
@@ -3524,11 +4071,16 @@ def main():
         # EAGLE and Medusa, continuous EAGLE); no other kernel runs there
         kernels[-1]["head_path_launches"] = (
             head_launches if name == "tree_attention" else 0)
-        # launches on the registry's path: phase 23's Yi-9B and phase 24's
-        # Gemma-2-9B tree passes (static and continuous); no other kernel
-        # runs there
+        # launches on the registry's path: phase 23's Yi-9B, phase 24's
+        # Gemma-2-9B and phase 25's granite tree passes (static and
+        # continuous); no other kernel runs there
         kernels[-1]["arch_path_launches"] = (
             arch_launches if name == "tree_attention" else 0)
+        # launches on the MoE path (phase 25): granite's tree passes
+        # (tree attention), its int8 pass (quantized matmul) and its TVD++
+        # steps (the distill kernels)
+        kernels[-1]["moe_path_launches"] = (
+            moe_tree if name == "tree_attention" else moe_launches[name])
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
           "phase_seconds": PHASE_SECONDS})
     emit({"kernels": kernels})

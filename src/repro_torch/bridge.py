@@ -33,7 +33,9 @@ from .configs.base import ModelConfig
 from .quant.qweight import QWeight
 
 _KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
-_NORMS = ("norm1", "norm2", "final_norm", "q_norm", "k_norm")
+# leaves kept in float32 whatever the weights' dtype: the norms, and an MoE
+# layer's router, which the reference always holds in float32
+_NORMS = ("norm1", "norm2", "final_norm", "q_norm", "k_norm", "router")
 # norms of the draft heads: the eagle block's three, and medusa's (K, D)
 _HEAD_NORMS = ("norm1", "norm2", "out_norm", "norm")
 _META_KEY = "__quant_meta__"
@@ -115,10 +117,12 @@ def params_from_jax(np_tree, cfg: ModelConfig, device, dtype=None):
 
     Layer i of the repeating pattern's k-th kind in repetition r is
     ``groups[k][name][r]``; layers follow in order r-major, then ``rem``.
-    Matmul weights are cast to ``dtype``: by default ``cfg``'s compute
-    dtype, as a served model holds them; a model to be trained passes its
-    ``param_dtype``. Norms stay float32, and quantized weights keep their
-    integer ``q`` and float32 scales.
+    An MoE layer's stacked (n, E, d, f) expert banks are sliced the same
+    way. Matmul weights and expert banks are cast to ``dtype``: by default
+    ``cfg``'s compute dtype, as a served model holds them; a model to be
+    trained passes its ``param_dtype``. Norms and MoE routers stay
+    float32, and quantized weights keep their integer ``q`` and float32
+    scales.
     """
     if any(isinstance(k, str) and k.startswith("[") for k in np_tree):
         np_tree = _unflatten(np_tree)

@@ -149,7 +149,7 @@ class SDConfig:
     quality: bool = False
 
 
-def init_quality_buffer(batch: int, depth: int, device="cpu"):
+def init_quality_buffer(batch: int, depth: int, device):
     """Zeroed ``state["qual"]``: the round's output replaces it. ``depth``
     is gamma for chain rounds, the tree depth for tree rounds."""
     def zeros(dtype):

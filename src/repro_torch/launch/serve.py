@@ -67,15 +67,27 @@ the small same-family variant (CPU smoke runs).
 ``--arch`` takes every key of ``configs.ARCHS``. The dense ones are served
 (``yi-9b``, ``phi4-mini-3.8b``, ``minitron-4b``, ``chameleon-34b`` with
 qk-norm, ``gemma2-9b`` with its sliding-window layers, softcaps and scaled
-embeddings, the Llama pair), ``musicgen-large`` as its single-codebook
-variant, as the reference's launcher serves it. An arch whose layers the
-port does not run yet (``granite-moe-3b-a800m``, ``grok-1-314b``,
-``zamba2-7b``, ``xlstm-1.3b``) exits with the model's refusal, which names
-the ROADMAP item that ports it. As in the reference's launcher, there is no
-long-context flag (``SDConfig.long_context`` is the library's switch):
+embeddings, the Llama pair), the mixture-of-experts ones
+(``granite-moe-3b-a800m``, ``grok-1-314b``; their drafters are dense, and
+``--quant-weights`` leaves the routers and expert banks at full
+precision), and ``musicgen-large`` as its single-codebook variant, as the
+reference's launcher serves it. An arch whose layers the port does not run
+yet (``zamba2-7b``, ``xlstm-1.3b``) exits with the model's refusal, which
+names the ROADMAP item that ports it. As in the reference's launcher,
+there is no long-context flag (``SDConfig.long_context`` is the library's
+switch):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --tree \
       --temperature 0.7 --requests 4 --prompt-len 128 --max-new 64
+
+An MoE layer drops the (token, expert) assignments past its capacity,
+which depends on the number of tokens in the call, as in the reference: a
+token's output can then depend on its batchmates, so greedy speculative
+tokens equal the autoregressive ones only where nothing drops
+(``moe_capacity_factor`` = experts / experts per token):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-3b-a800m --tree --temperature 0.7
 """
 from __future__ import annotations
 

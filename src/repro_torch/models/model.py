@@ -102,26 +102,33 @@ class Model:
         return tfm.init_paged_cache(self.cfg, num_pages, page_size,
                                     self.device, kv_quant)
 
-    def hidden(self, params, tokens):
-        """tokens (B, S) -> final hidden states (B, S, D) of a training
-        forward (no caches). The reference also returns an MoE aux loss,
-        always 0 for the dense models the port has."""
-        h = tfm.backbone(params, tokens, self.cfg, mode="train")[0]
+    def hidden_and_aux(self, params, tokens, with_aux: bool = True):
+        """tokens (B, S) -> (final hidden states (B, S, D) of a training
+        forward (no caches), the MoE router aux summed over the layers;
+        float32, 0 for a dense model): the pair the reference's ``hidden``
+        returns. Without ``with_aux`` the aux is not computed (None)."""
+        h, aux = tfm.backbone(params, tokens, self.cfg, mode="train",
+                              with_aux=with_aux)
         if _HIDDEN_TAPS:
             _HIDDEN_TAPS[-1]["hidden"] = h
-        return h
+        return h, aux
+
+    def hidden(self, params, tokens):
+        """The hidden states of ``hidden_and_aux``, the aux not computed."""
+        return self.hidden_and_aux(params, tokens, with_aux=False)[0]
 
     def logits(self, params, tokens):
         return tfm.logits_from_hidden(params, self.hidden(params, tokens),
                                       self.cfg)
 
     def loss_ce(self, params, tokens, labels):
-        """Mean next-token CE; tokens/labels already shifted. Returns
-        (loss, {"ce": loss})."""
-        s, c = chunked_ce_from_hidden(params, self.hidden(params, tokens),
-                                      labels, self.cfg)
-        loss = s / c.clamp(min=1)
-        return loss, {"ce": loss}
+        """Mean next-token CE plus ``router_aux_weight`` times the MoE aux;
+        tokens/labels already shifted. Returns (loss, {"ce": the CE, "aux":
+        the aux})."""
+        h, aux = self.hidden_and_aux(params, tokens)
+        s, c = chunked_ce_from_hidden(params, h, labels, self.cfg)
+        ce = s / c.clamp(min=1)
+        return ce + self.cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, tokens, cache_len: int,
                 long_context: bool = False, positions=None,

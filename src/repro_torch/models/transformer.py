@@ -8,9 +8,11 @@ Layer i is of kind ``layer_kinds(cfg)[i]``: the repeating pattern r-major,
 then the remainder, the order in which ``bridge.params_from_jax`` unstacks
 the reference's groups. The ``attn`` and ``local_attn`` kinds are ported,
 with qk-norm, softcaps, sliding windows, long-context windows and scaled
-embeddings (Gemma-2); ``check_config`` refuses every other kind and
-feature of the registry, naming the ROADMAP item (queue 1) that ports it,
-so that no config runs with a feature silently dropped.
+embeddings (Gemma-2), and a layer's FFN is a SwiGLU or, in an MoE config,
+the experts of ``models.moe`` under ``"moe"``; ``check_config`` refuses
+every other kind and feature of the registry, naming the ROADMAP item
+(queue 1) that ports it, so that no config runs with a feature silently
+dropped.
 """
 from __future__ import annotations
 
@@ -21,12 +23,12 @@ from ..configs.base import ATTN, LOCAL_ATTN, MAMBA, MLSTM, SHARED_ATTN, SLSTM
 from . import attention as attn_mod
 from .layers import (dense_param, embed_tokens, lm_head_logits, rms_norm,
                      swiglu, trunc_normal)
+from .moe import init_moe, moe_ffn
 
 
 # ROADMAP.md queue 1 items that port what the decoder refuses
 _CODEBOOKS = ("ROADMAP §1 item 3 (multi-codebook embeddings, heads and loss, "
               "musicgen-large with K 4)")
-_MOE = "ROADMAP §1 item 4 (mixture of experts)"
 _RECURRENT = "ROADMAP §1 item 5 (recurrent layers and hybrids)"
 _ITEM_OF_KIND = {MAMBA: _RECURRENT, MLSTM: _RECURRENT, SLSTM: _RECURRENT,
                  SHARED_ATTN: _RECURRENT}
@@ -35,18 +37,15 @@ _ATTN_KINDS = (ATTN, LOCAL_ATTN)
 
 def check_config(cfg):
     """Raise ``ValueError`` naming the ROADMAP item of the first layer kind
-    or feature of ``cfg`` that the port does not run yet: experts,
-    recurrent and shared-attention layers, more than one codebook.
-    Softcaps, qk-norm, ``local_attn`` layers and ``scale_embed`` are
-    ported."""
+    or feature of ``cfg`` that the port does not run yet: recurrent and
+    shared-attention layers, more than one codebook. Softcaps, qk-norm,
+    ``local_attn`` layers, ``scale_embed`` and experts are ported."""
     g, _, rem = cfg.pattern_blocks()
     refused = [(f"the '{kind}' layer kind", _ITEM_OF_KIND.get(kind, "no item"))
                for kind in tuple(g) + tuple(rem) if kind not in _ATTN_KINDS]
-    refused += [(what, item) for on, what, item in (
-        (cfg.is_moe, f"mixture of experts ({cfg.num_experts} experts)", _MOE),
-        (cfg.num_codebooks > 1,
-         f"multi-codebook input ({cfg.num_codebooks} codebooks)", _CODEBOOKS))
-        if on]
+    if cfg.num_codebooks > 1:
+        refused.append((f"multi-codebook input ({cfg.num_codebooks} "
+                        "codebooks)", _CODEBOOKS))
     if refused:
         what, item = refused[0]
         raise ValueError(f"{cfg.name}: {what} is not ported yet; it waits "
@@ -79,8 +78,9 @@ def layer_windows(cfg, long_context=False):
 
 def init_params(gen, cfg, device, dtype=None):
     """Seeded random parameters drawn from ``gen`` on ``device``: matmul
-    weights in ``dtype`` (default: the compute dtype, for serving; training
-    passes ``cfg.param_dtype``), norm weights in float32 (zeros)."""
+    weights and expert banks in ``dtype`` (default: the compute dtype, for
+    serving; training passes ``cfg.param_dtype``), norm weights in float32
+    (zeros), an MoE router in float32."""
     check_config(cfg)
     wdt = dtype or cfg.compute_dtype
     d, hd, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
@@ -104,13 +104,17 @@ def init_params(gen, cfg, device, dtype=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_param(gen, d, cfg.vocab_size, wdt, device)
     params["final_norm"] = norm()
-    params["layers"] = [
-        {"norm1": norm(),
-         "attn": attn(),
-         "norm2": norm(),
-         "mlp": {"w_gate": dense(d, f), "w_up": dense(d, f),
-                 "w_down": dense(f, d)}}
-        for _ in range(cfg.num_layers)]
+
+    def layer():
+        lp = {"norm1": norm(), "attn": attn(), "norm2": norm()}
+        if cfg.is_moe:
+            lp["moe"] = init_moe(gen, cfg, wdt, device)
+        else:
+            lp["mlp"] = {"w_gate": dense(d, f), "w_up": dense(d, f),
+                         "w_down": dense(f, d)}
+        return lp
+
+    params["layers"] = [layer() for _ in range(cfg.num_layers)]
     return params
 
 
@@ -170,16 +174,25 @@ def init_paged_cache(cfg, num_pages, page_size, device, kv_quant=False):
     return pools
 
 
-def _train_layer(lp, x, positions, cfg, window):
+def _ffn(lp, x, cfg, with_aux=False):
+    """The layer's FFN on its normed input x: (y, the MoE aux with
+    ``with_aux``, else None; None for a SwiGLU)."""
+    if "moe" in lp:
+        return moe_ffn(lp["moe"], x, cfg, with_aux=with_aux)
+    return swiglu(lp["mlp"], x), None
+
+
+def _train_layer(lp, x, positions, cfg, window, with_aux):
     x = x + attn_mod.causal_attention(lp["attn"], rms_norm(x, lp["norm1"],
                                                            cfg.norm_eps),
                                       positions, cfg, window)
-    return x + swiglu(lp["mlp"], rms_norm(x, lp["norm2"], cfg.norm_eps))
+    y, aux = _ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps), cfg, with_aux)
+    return x + y, aux
 
 
 def backbone(params, tokens, cfg, mode, positions=None, cache=None,
              long_context=False, cache_len=0, slots=None, attn_mask=None,
-             page_table=None):
+             page_table=None, with_aux=False):
     """tokens: (B, S) int. ``mode`` is "train" (no caches), "prefill"
     (builds caches of ``cache_len`` slots in every layer, as the
     reference does) or "decode" (writes into ``cache``; with
@@ -188,7 +201,10 @@ def backbone(params, tokens, cfg, mode, positions=None, cache=None,
     ``_block_window``; ``long_context`` windows the global layers too.
     With ``cfg.scale_embed`` the embeddings are multiplied by
     sqrt(d_model) in the compute dtype. Returns (hidden (B, S, D) after
-    the final norm, caches; None in training).
+    the final norm, caches); in training the second item is, with
+    ``with_aux``, the MoE aux summed over the layers (float32, 0 for a
+    dense model), else None: a forward that drops the aux does not compute
+    it. Prefill and decode drop the aux, as the reference's do.
 
     In training with ``cfg.remat``, each layer runs under
     ``torch.utils.checkpoint`` while gradients are recorded, so backward
@@ -204,13 +220,17 @@ def backbone(params, tokens, cfg, mode, positions=None, cache=None,
                                  device=tokens.device)[None].expand(B, S)
     if mode == "train":
         remat = cfg.remat and torch.is_grad_enabled()
+        aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
+                     if with_aux else None)
         for lp, window in zip(params["layers"], windows):
             if remat:
-                x = checkpoint(_train_layer, lp, x, positions, cfg, window,
-                               use_reentrant=False)
+                x, aux = checkpoint(_train_layer, lp, x, positions, cfg,
+                                    window, with_aux, use_reentrant=False)
             else:
-                x = _train_layer(lp, x, positions, cfg, window)
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), None
+                x, aux = _train_layer(lp, x, positions, cfg, window, with_aux)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
     caches = []
     for i, (lp, window) in enumerate(zip(params["layers"], windows)):
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
@@ -228,7 +248,7 @@ def backbone(params, tokens, cfg, mode, positions=None, cache=None,
         else:
             raise ValueError(f"mode {mode!r} is not ported")
         x = x + y
-        x = x + swiglu(lp["mlp"], rms_norm(x, lp["norm2"], cfg.norm_eps))
+        x = x + _ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps), cfg)[0]
         caches.append(c)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
 

@@ -17,8 +17,11 @@ Calibration batches come from the distillation datagen pipeline
 (``core.datagen.generate_distillation_dataset``): responses of the target
 are the token distribution the drafter serves under.
 
-Only matmul weights with the canonical names (QKV and output projections,
-SwiGLU, lm head) are quantized; embeddings and norms stay full precision.
+Only 2-D matmul weights with the canonical names (QKV and output
+projections, SwiGLU, lm head) are quantized; embeddings, norms, and an
+MoE layer's router and (E, K, N) expert banks stay full precision, as in
+the reference. The calibration forward runs the MoE blocks; their expert
+matmuls do not pass through ``matmul_param``, so they record nothing.
 """
 from __future__ import annotations
 
@@ -151,16 +154,17 @@ def quantize_params(model, params, qcfg: QuantConfig,
 
 def cast_unquantized(params, dtype):
     """Cast the floating leaves that are neither ``QWeight``s nor norm
-    weights (the embedding, and any matmul weight left in float32) to
-    ``dtype``, in a new tree: a model quantized from float32 weights then
-    holds what a served model holds. Norm weights stay float32."""
+    weights nor MoE routers (the embedding, expert banks, and any matmul
+    weight left in float32) to ``dtype``, in a new tree: a model quantized
+    from float32 weights then holds what a served model holds. Norm
+    weights and routers stay float32."""
     def walk(tree, name=None):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [walk(v) for v in tree]
         if (isinstance(tree, QWeight) or "norm" in (name or "")
-                or not tree.is_floating_point()):
+                or name == "router" or not tree.is_floating_point()):
             return tree
         return tree.to(dtype)
 

@@ -1,6 +1,6 @@
 """Modeled bytes moved by one decode step of the quantized path, and by
-one round's draft phase (``repro.quant.roofline``, dense attention-only
-models).
+one round's draft phase (``repro.quant.roofline``, attention-only models,
+dense or MoE).
 
 Decode is bound by memory: the model reads every live weight byte and
 every live KV byte once per step, with the quantized dtypes and their scale
@@ -42,10 +42,10 @@ def decode_step_bytes(cfg: ModelConfig, batch: int, ctx: int,
     weights: "float32" | "bfloat16" | "int8" | "int4"; kv: "bfloat16" |
     "int8". Only the matmul weights that ``quantize_params`` quantizes
     (QKV/out projections, SwiGLU, lm head) are billed at the quantized
-    width; embeddings and norms stay at ``cfg.param_dtype`` on both sides
-    of the comparison. Scale overhead: per-out-channel fp32 for int8
-    weights, per ``group_size`` input group for int4, per-(slot, head) fp32
-    for int8 KV."""
+    width; embeddings, norms and an MoE model's routers and expert banks
+    stay at ``cfg.param_dtype`` on both sides of the comparison. Scale
+    overhead: per-out-channel fp32 for int8 weights, per ``group_size``
+    input group for int4, per-(slot, head) fp32 for int8 KV."""
     wb = _BYTES[weights]
     scale = 0.0
     L = attn_layer_count(cfg)
@@ -53,7 +53,7 @@ def decode_step_bytes(cfg: ModelConfig, batch: int, ctx: int,
         d, hd = cfg.d_model, cfg.head_dim_
         mats = [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd),
                 (d, cfg.num_kv_heads * hd), (cfg.num_heads * hd, d)]
-        if cfg.d_ff > 0:
+        if cfg.d_ff > 0 and not cfg.is_moe:
             mats += [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
         q_params = L * sum(K * N for K, N in mats)
         head = 0

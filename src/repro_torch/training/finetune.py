@@ -38,12 +38,22 @@ def distill_loss_and_grads(draft: Model, target: Model, params, t_params,
                            tokens, mask, loss_kind: str = "tvdpp",
                            use_kernels: bool = False):
     """(loss, gradients of the drafter's ``params``) for one batch."""
+    loss, _, grads = _distill_parts_and_grads(draft, target, params, t_params,
+                                              tokens, mask, loss_kind,
+                                              use_kernels)
+    return loss, grads
+
+
+def _distill_parts_and_grads(draft, target, params, t_params, tokens, mask,
+                             loss_kind, use_kernels):
+    """(loss, distillation loss, gradients) for one batch. The loss adds
+    ``router_aux_weight`` times the drafter's MoE aux (0 for a dense
+    drafter) to the distillation loss, as the reference's step does."""
     with torch.no_grad():
         t_hidden = target.hidden(t_params, tokens)
     kernels = use_kernels and loss_kind in KERNEL_KINDS
 
-    def loss_fn(p):
-        s_hidden = draft.hidden(p, tokens)
+    def distill(p, s_hidden):
         if draft.cfg.vocab_size > CHUNKED_VOCAB_THRESHOLD:
             return chunked_distill_loss(loss_kind, p, t_params, s_hidden,
                                         t_hidden, mask, draft.cfg, target.cfg,
@@ -58,19 +68,25 @@ def distill_loss_and_grads(draft: Model, target: Model, params, t_params,
                                           mask.reshape(-1))
         return distill_loss(loss_kind, s_logits, t_logits, mask)
 
-    return value_and_grad(loss_fn, params)
+    def loss_fn(p):
+        s_hidden, aux = draft.hidden_and_aux(p, tokens)
+        loss = distill(p, s_hidden)
+        return loss + draft.cfg.router_aux_weight * aux, loss
+
+    (loss, dloss), grads = value_and_grad(loss_fn, params, has_aux=True)
+    return loss, dloss, grads
 
 
 def make_distill_step(draft: Model, target: Model, tc: TrainConfig,
                       loss_kind: str = "tvdpp", use_kernels: bool = False):
     def step(state, t_params, tokens, mask):
-        loss, grads = distill_loss_and_grads(draft, target, state["params"],
-                                             t_params, tokens, mask,
-                                             loss_kind, use_kernels)
+        loss, dloss, grads = _distill_parts_and_grads(
+            draft, target, state["params"], t_params, tokens, mask, loss_kind,
+            use_kernels)
         new_params, new_opt, info = adamw_update(state["params"], grads,
                                                  state["opt"], tc)
         return ({"params": new_params, "opt": new_opt},
-                {"loss": loss, "distill_loss": loss, **info})
+                {"loss": loss, "distill_loss": dloss, **info})
     return step
 
 

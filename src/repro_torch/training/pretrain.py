@@ -25,23 +25,30 @@ def make_train_state(model: Model, seed: int, tc: TrainConfig):
     return {"params": params, "opt": opt}
 
 
-def value_and_grad(loss_fn, params):
+def value_and_grad(loss_fn, params, has_aux: bool = False):
     """(loss detached, gradients as a tree like ``params``) of the scalar
-    ``loss_fn(params)``; ``params`` itself is left untouched."""
+    ``loss_fn(params)``; ``params`` itself is left untouched. With
+    ``has_aux``, as ``jax.value_and_grad``'s: ``loss_fn`` returns (loss,
+    aux), a tree of tensors that gets no gradient, and the first item is
+    (loss, aux), both detached."""
     p = tree_map(lambda x: x.detach().requires_grad_(), params)
-    loss = loss_fn(p)
+    loss, aux = loss_fn(p) if has_aux else (loss_fn(p), None)
     grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
-    return loss.detach(), tree_map(lambda _: next(grads), p)
+    grads = tree_map(lambda _: next(grads), p)
+    if has_aux:
+        return (loss.detach(), tree_map(torch.Tensor.detach, aux)), grads
+    return loss.detach(), grads
 
 
 def make_train_step(model: Model, tc: TrainConfig):
     def step(state, tokens, labels):
-        loss, grads = value_and_grad(
-            lambda p: model.loss_ce(p, tokens, labels)[0], state["params"])
+        (loss, parts), grads = value_and_grad(
+            lambda p: model.loss_ce(p, tokens, labels), state["params"],
+            has_aux=True)
         new_params, new_opt, info = adamw_update(state["params"], grads,
                                                  state["opt"], tc)
         return ({"params": new_params, "opt": new_opt},
-                {"loss": loss, "ce": loss, **info})
+                {"loss": loss, **parts, **info})
     return step
 
 

@@ -28,14 +28,12 @@ ROOT = Path(__file__).resolve().parents[1]
 ALL = list(jcfgs.ARCHS)
 # arch -> the ROADMAP item its refusal names (ROADMAP.md §1)
 REFUSED = {
-    "granite-moe-3b-a800m": "ROADMAP §1 item 4",
-    "grok-1-314b": "ROADMAP §1 item 4",
     "zamba2-7b": "ROADMAP §1 item 5",
     "xlstm-1.3b": "ROADMAP §1 item 5",
     "musicgen-large": "ROADMAP §1 item 3",     # K 4 through Model
 }
 SERVED = ("phi4-mini-3.8b", "minitron-4b", "chameleon-34b", "yi-9b",
-          "gemma2-9b", "llama2-7b-chat",
+          "gemma2-9b", "granite-moe-3b-a800m", "grok-1-314b", "llama2-7b-chat",
           "llama2-chat-drafter-115m")                  # and musicgen, K 1
 
 
@@ -125,25 +123,27 @@ def test_refused_archs_raise_at_construction(arch, size):
 
 def test_refusal_names_each_feature():
     base = tcfgs.reduced(tcfgs.get_config("yi-9b"))
-    for over, item in ((dict(num_experts=4, num_experts_per_tok=2), "item 4"),
-                       (dict(layer_pattern=("mamba",), ssm_state_dim=16), "item 5"),
+    for over, item in ((dict(layer_pattern=("mamba",), ssm_state_dim=16), "item 5"),
                        (dict(layer_pattern=("mamba", "mamba", "shared_attn"),
                              ssm_state_dim=16, shared_attn_period=2), "item 5"),
                        (dict(layer_pattern=("mlstm", "slstm")), "item 5"),
                        (dict(num_codebooks=2), "item 3")):
         with pytest.raises(ValueError, match=item):
             Model(base.replace(**over), device="cpu").init(0)
-    # softcaps and qk-norm are ported, and since ROADMAP §1 item 2 so are
-    # scaled embeddings and local_attn layers: those configs construct
+    # softcaps and qk-norm are ported, since ROADMAP §1 item 2 so are
+    # scaled embeddings and local_attn layers, and since item 4 experts:
+    # those configs construct
     Model(base.replace(attn_softcap=50.0, final_softcap=30.0, qk_norm=True),
           device="cpu").init(0)
     for over in (dict(scale_embed=True),
-                 dict(layer_pattern=("local_attn", "attn"))):
+                 dict(layer_pattern=("local_attn", "attn")),
+                 dict(num_experts=4, num_experts_per_tok=2)):
         model = Model(base.replace(**over), device="cpu")
         params = model.init(0)
         assert len(params["layers"]) == base.num_layers
         assert len(model.init_cache(2, 16)) == base.num_layers
         assert len(model.init_paged_cache(4, 16)) == base.num_layers
+        assert ("moe" in params["layers"][0]) == ("num_experts" in over)
 
 
 @pytest.mark.parametrize("arch", sorted(set(REFUSED) - {"musicgen-large"}))

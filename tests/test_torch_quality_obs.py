@@ -72,7 +72,7 @@ def test_quality_buffer_matches_reference(shape):
                               None if drafted is None else tensor(drafted))
     check_qual(tq, jq)
     assert float(tq["ent"][0].abs().max()) == 0.0      # one-hot: no entropy
-    init = tspec.init_quality_buffer(R, K)
+    init = tspec.init_quality_buffer(R, K, "cpu")
     assert {k: (v.shape, v.dtype) for k, v in init.items()} == {
         "tvd": ((R, K), torch.float32), "ent": ((R, K), torch.float32),
         "acc": ((R, K), torch.bool), "drafted": ((R, K), torch.bool)}

@@ -2,6 +2,7 @@
 and ``repro_torch`` (the PyTorch port): config pairs, the same float32
 weights on both sides, and the reference's random draws handed to the
 port as noise tensors."""
+import contextlib
 import dataclasses
 
 import jax
@@ -46,6 +47,27 @@ def tensor(a, dtype=None):
 def gumbel(key, shape):
     """The Gumbel noise ``jax.random.categorical`` draws from ``key``."""
     return jax.random.gumbel(key, shape, jnp.float32)
+
+
+@contextlib.contextmanager
+def dropped_per_call():
+    """Count the dropped (token, expert) assignments of every MoE layer
+    call of the port (``models.moe._dispatch`` sends them to the overflow
+    slot E * C): a list of (tokens, C, dropped) per call, in call order."""
+    from repro_torch.models import moe
+    calls = []
+    dispatch = moe._dispatch
+
+    def spy(experts, E, C):
+        slot = dispatch(experts, E, C)
+        calls.append((experts.shape[0], C, int((slot == E * C).sum())))
+        return slot
+
+    moe._dispatch = spy
+    try:
+        yield calls
+    finally:
+        moe._dispatch = dispatch
 
 
 @pytest.fixture(scope="module")
