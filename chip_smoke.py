@@ -24,7 +24,10 @@ Phases, each printing one JSON line and then one line of its seconds:
      bound, the plain version's and one PyTorch library call's
      (scaled_dot_product_attention, GQA by the library, without a softcap:
      it has none); and the quantized matmul (int8) against its plain
-     version at granite's lm head (M 28, K 1536, N 49155: an odd N);
+     version at every (K, N) of granite's quantized pair (its lm heads at
+     N 49155: an odd N) and of zamba2's (M 4, a recurrent verify's feed,
+     and 512), timed at zamba2's target shapes at M 4 beside their bytes
+     bound, the plain version's and torch._weight_int8pack_mm's;
   3. full-width tree-speculative serving: Llama-2-7B-Chat with the 115M
      drafter in bf16, random weights from fixed seeds, 4 requests, prompt
      128, 64 new tokens, tree (2, 2), temperature 0.7; the tree attention
@@ -63,7 +66,7 @@ Phases, each printing one JSON line and then one line of its seconds:
  10. full-width quantized serving: Llama-2-7B-Chat and its drafter drawn in
      float32, AWQ-calibrated on datagen batches of the target, quantized to
      int8 and then to int4 weights, with int8 KV caches; tree (2, 2) and
-     chain (gamma 3) over 4 x (128 + 32) at temperature 0.7, the launch
+     chain (gamma 3) over 4 x (128 + 16) at temperature 0.7, the launch
      counts asserted (each
      forward pass of a quantized model launches the kernel 7 * layers + 1
      times);
@@ -171,7 +174,7 @@ Phases, each printing one JSON line and then one line of its seconds:
      freed): (a) Yi-9B at full width (48 layers, d 4096, 32 heads on 4 KV
      heads, V 64000; 8.83B parameters) with its drafter (4 layers, d 1024)
      in bf16 from seeds 0/1, tree (2, 2) and chain gamma 3 over 4 x (128 +
-     64) at temperature 0.7: 48 + 4 * 3 = 60 tree_attention launches a tree
+     32) at temperature 0.7: 48 + 4 * 3 = 60 tree_attention launches a tree
      round (tree_attention at G 8), tau, MBSU with c from param_count,
      tok/s, peak memory, host and device ms per round (torch.profiler);
      (b) the first 8 requests of phase 16's chat stream through 4 slots of
@@ -191,7 +194,7 @@ Phases, each printing one JSON line and then one line of its seconds:
      KV heads at hd 256, softcaps 50/30, scaled embeddings, V 256000;
      10.16B parameters) with its drafter (4 layers, d 1024; 0.571B) in
      bf16 from seeds 0/1, tree (2, 2) and chain gamma 3 over 4 x (128 +
-     64) at temperature 0.7, within the window: 42 + 4 * 3 = 54
+     32) at temperature 0.7, within the window: 42 + 4 * 3 = 54
      tree_attention launches a tree round and no other kernel, tau, MBSU
      with c from param_count, tok/s, peak memory, host and device ms per
      round; (b) the continuous engine by tree over 4 requests of 4,160
@@ -208,7 +211,7 @@ Phases, each printing one JSON line and then one line of its seconds:
      granite-moe-3b-a800m at full width (32 layers, d 1536, 24 heads on 8
      KV heads at hd 64, 40 experts top-8 of width 512, V 49155; 3.374B
      parameters) with its dense drafter (4 layers, d 512; 62.1M) in bf16
-     from seeds 0/1, tree (2, 2) and chain gamma 3 over 4 x (128 + 64) at
+     from seeds 0/1, tree (2, 2) and chain gamma 3 over 4 x (128 + 32) at
      temperature 0.7: 32 + 4 * 3 = 44 tree_attention launches a tree round
      and no other kernel (the experts are batched matmuls, as the
      reference's einsums), tau, tok/s, host and device ms per round, the
@@ -229,8 +232,33 @@ Phases, each printing one JSON line and then one line of its seconds:
      TVD++ steps of granite's drafter against the frozen bf16 target
      through the distill kernels at V 49155, launches asserted, one step's
      kernel route against the plain route as in phase 7; (f) the serving
-     CLI by tree at full width, launches checked.
-Phases 23-25 run after phase 22; phases 10, 11, 13-15, 18 and 21 run before
+     CLI by tree at full width, launches checked;
+ 26. recurrent layers and hybrids (after phase 25): (a) zamba2-7b at
+     full width (81 blocks: 70 Mamba2 of d_in 7168, 112 SSD heads of 64,
+     N 64, chunk 128, and 11 applications of 2 shared attention+MLP sets,
+     32 heads at hd 112, d_ff 14336; V 32000) with its drafter (7 blocks
+     of (mamba, mamba, shared_attn), d 1024) in bf16 from seeds 0/1, chain
+     gamma 3 and AR over 4 x (128 + 64) at temperature 0.7 (a recurrent
+     model is fed one token a call and rewound by snapshots; no kernel is
+     launched): tau, MBSU with c from param_count beside the init's
+     count, tok/s, host and device ms a round, the device shares of the
+     SSD scan, the conv, the matmuls and the snapshot rewind
+     (torch.profiler), the snapshots' bytes, weights and peak GB, equal
+     bits twice; (b) the same for xlstm-1.3b (48 blocks of alternating
+     mLSTM and sLSTM, d 2048, 4 heads, V 50304) and its drafter (4
+     blocks, d 512); (c) greedy exactness in float32: zamba2 cut to 7
+     blocks with its drafter, itself and an untrained EAGLE head, xlstm
+     cut to 2 blocks with its drafter and itself; (d) zamba2 at int8 with
+     AWQ on (shared sets per set by plain absmax, lm heads with AWQ),
+     int8 KV on its shared attention caches, chain over 4 x (128 + 16)
+     with quant_matmul's launches asserted, stored against modeled
+     bytes, and xlstm's int8 refused (ROADMAP §3 item 9); (e) 2 TVD++
+     steps of zamba2's drafter against the full-width frozen target at 2
+     x 1024, V 32000, through the distill kernels, launches asserted, the
+     kernel route against the plain route; (f) the serving CLI for
+     zamba2 by chain (exit 0, no kernel) and with --tree (exit 1 with the
+     reference's refusal, no traceback).
+Phases 23-26 run after phase 22; phases 10, 11, 13-15, 18 and 21 run before
 phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
@@ -613,6 +641,7 @@ def phase2_kernels():
     assert deterministic, "tree_attention differs between two runs"
     paged = check_paged_tree_cases(gen)
     granite_quant = check_granite_quant_cases(gen)
+    zamba_quant, zamba_timing = zamba_quant_cases(gen)
 
     # timing at the main path's shape (Llama's verify, bf16, S 201), at
     # Yi-9B's (G 8) and at Gemma-2-9B's (hd 256 and its drafter's levels,
@@ -648,8 +677,23 @@ def phase2_kernels():
                         "G3 hd64, granite drafter level Hkv4 N4 G2 hd64, grok "
                         "verify Hkv8 N7 G6 hd128 softcap 30; library: SDPA "
                         "without the softcap", **moe},
-          "quant_matmul_granite": granite_quant})
-    return {"tree_attention": {"max_abs_err": results[0]["max_abs_err"],
+          "quant_matmul_granite": granite_quant,
+          "quant_matmul_zamba2": zamba_quant,
+          "quant_matmul_zamba2_timing": {
+              "note": "device ms per call, CUDA graph of 50 calls rotating "
+                      "over 150 MB of weights, x bf16 (M 4)",
+              **{name: t[4] for name, t in zamba_timing.items()}}})
+    zamba_m4 = {name: {"ms": t[4]["device_ms"]["kernel"],
+                       "plain_ms": t[4]["device_ms"]["plain"],
+                       "bound_ms": t[4]["bound_ms"],
+                       "bound_by": t[4]["bound_by"],
+                       "library_ms": t[4]["device_ms"]["library"],
+                       "cublas_bf16_ms": t[4]["device_ms"]["cublas_bf16"]}
+                for name, t in zamba_timing.items()}
+    return {"quant_matmul_int8_zamba2_m4": {
+                "max_rel_err": max(zamba_quant["worst_rel_err"].values()),
+                **zamba_m4},
+            "tree_attention": {"max_abs_err": results[0]["max_abs_err"],
                                "ms": llama["device_ms"]["kernel"],
                                "plain_ms": llama["device_ms"]["plain"],
                                "bound_ms": llama["bound_ms"],
@@ -704,9 +748,16 @@ def check_granite_quant_cases(gen):
     pass 25c runs (``quant_pass_rows``: drafter levels and chain steps 4,
     8, 16, chain verify 16, tree verify 28, prefill 512), with and without
     an AWQ pre-scale, x in bf16 and float32."""
-    rows = quant_pass_rows()
+    return check_quant_table(gen, GRANITE_QUANT_SHAPES, quant_pass_rows(),
+                             "granite")
+
+
+def check_quant_table(gen, shapes, rows, arch):
+    """``quant_matmul`` int8 against its plain version at every (K, N) of
+    ``shapes`` and every M of ``rows``, with and without an AWQ pre-scale,
+    x in bf16 and float32, within ``QUANT_TOL`` of the output's scale."""
     worst, n_cases = {}, 0
-    for model, lst in GRANITE_QUANT_SHAPES.items():
+    for model, lst in shapes.items():
         for name, K, N in lst:
             for awq in (False, True):
                 qw = quant_weight(gen, K, N, 8, awq)
@@ -719,12 +770,27 @@ def check_granite_quant_cases(gen):
                         worst[key] = max(worst.get(key, 0.0),
                                          err / tol * QUANT_TOL)
                         assert ok, ("quant_matmul disagrees with its plain "
-                                    "version at a granite shape", model, name,
+                                    f"version at a {arch} shape", model, name,
                                     K, N, M, awq, str(dtype), err, tol)
                 del qw
-    return {"cases": n_cases, "M": rows, "awq": [False, True],
+    return {"cases": n_cases, "M": list(rows), "awq": [False, True],
             "x": ["bfloat16", "float32"], "tolerance_rel": QUANT_TOL,
             "worst_rel_err": worst}
+
+
+def zamba_quant_cases(gen):
+    """``quant_matmul`` int8 at every (K, N) of phase 26d's quantized
+    zamba2 target and drafter, at M 4 (a recurrent verify feeds one token
+    a call: every pass of a chain round) and 512 (prefill), within
+    ``QUANT_TOL``; then its device times at the target's four shapes at M
+    4 beside their bytes bound, the plain version's and
+    torch._weight_int8pack_mm's (``time_quant_shape``)."""
+    checks = check_quant_table(gen, ZAMBA_QUANT_SHAPES, ZAMBA_QUANT_ROWS,
+                               "zamba2")
+    timing = {name: time_quant_shape(gen, K, N, 8, Ms=(4,))
+              for name, K, N in ZAMBA_QUANT_SHAPES["target"]}
+    torch.cuda.empty_cache()
+    return checks, timing
 
 
 def sdpa_tree(q, k, v, mask):
@@ -777,9 +843,9 @@ def time_tree(gen, B, Hkv, N, G, hd, S, softcap=None, make=None, iters=200):
             "library_max_abs_err": lib_err}
 
 
-def phase3_tree_serving(models, smi, phase=3):
-    """Tree serving of 4 x (128 + 64) at 0.7, the launches asserted.
-    Returns (the launches, ``profile_tree``'s breakdown)."""
+def phase3_tree_serving(models, smi, phase=3, max_new=64):
+    """Tree serving of 4 x (128 + ``max_new``) at 0.7, the launches
+    asserted. Returns (the launches, ``profile_tree``'s breakdown)."""
     from repro_torch.core.metrics import mbsu
     from repro_torch.core.speculative import SDConfig
     from repro_torch.kernels import ops
@@ -795,11 +861,11 @@ def phase3_tree_serving(models, smi, phase=3):
     torch.cuda.synchronize()
     ops.reset_launches()
     toks, stats = serve.serve_tree(target, t_params, draft, d_params, prompts,
-                                   64, sdc, spec)
+                                   max_new, sdc, spec)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     per_round = target.cfg.num_layers + draft.cfg.num_layers * (spec.depth + 1)
-    new = toks[:, 128:128 + 64]
+    new = toks[:, 128:128 + max_new]
     assert stats.rounds > 0 and launches["tree_attention"] == stats.rounds * per_round, \
         (launches, stats.rounds, per_round)
     assert bool(((new >= 0) & (new < target.cfg.vocab_size)).all()), "token out of vocab"
@@ -808,7 +874,8 @@ def phase3_tree_serving(models, smi, phase=3):
                              stats.wall_time_s * 1e3 / stats.rounds)
     emit({"phase": phase, "path": "tree", "arch": target.cfg.name,
           "drafter": draft.cfg.name, "dtype": target.cfg.dtype,
-          "requests": 4, "prompt_len": 128, "max_new": 64, "tree": spec.branching,
+          "requests": 4, "prompt_len": 128, "max_new": max_new,
+          "tree": spec.branching,
           "temperature": 0.7, "rounds": stats.rounds, "launches": launches,
           "launches_per_round": per_round, "tau": stats.tau,
           "mbsu": mbsu(stats.tau, c, spec.depth), "c": c,
@@ -841,15 +908,19 @@ def profile_tree(models, prompts, sdc, spec, wall_ms_per_round):
         torch.cuda.synchronize()
     out = kernel_breakdown(prof, stats.rounds, wall_ms_per_round)
     if moe and out.get("profiled", True) is not None:
-        out["moe"] = moe_shares(prof, stats.rounds)
+        out["moe"] = moe_shares(prof, stats.rounds,
+                                out["device_ms_per_round"] * 1e3 * stats.rounds)
     return out
 
 
-def device_kernels(prof):
+def device_kernels(prof, averages=None):
     """The profile's device events by name, without the device-side copies
-    of ``record_function`` ranges (they span kernels already counted)."""
+    of ``record_function`` ranges (they span kernels already counted).
+    ``averages``: the profile's ``key_averages()`` if already taken (it
+    walks every event: seconds for a long profile)."""
     from torch.autograd import DeviceType
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+    averages = prof.key_averages() if averages is None else averages
+    return [e for e in averages if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
 
 
@@ -857,7 +928,8 @@ def kernel_breakdown(prof, rounds, wall_ms_per_round):
     """Device time by kernel of ``rounds`` profiled rounds against the
     unprofiled host time of a round. None where the profiler saw no device
     activity."""
-    kernels = device_kernels(prof)
+    averages = prof.key_averages()
+    kernels = device_kernels(prof, averages)
     total_us = sum(e.self_device_time_total for e in kernels)
     if not kernels or total_us <= 0:
         return {"profiled": None}
@@ -869,7 +941,7 @@ def kernel_breakdown(prof, rounds, wall_ms_per_round):
 
     # device-to-host copies (the device-side memcpy records, whatever
     # device type the profiler files them under)
-    dtoh = sum(e.count for e in prof.key_averages() if "Memcpy DtoH" in e.key)
+    dtoh = sum(e.count for e in averages if "Memcpy DtoH" in e.key)
     return {"profiled_rounds": rounds,
             "device_ms_per_round": per_round_ms,
             "dtoh_copies_per_round": dtoh / rounds,
@@ -885,9 +957,9 @@ def kernel_breakdown(prof, rounds, wall_ms_per_round):
                             for e in top]}
 
 
-def phase4_chain_serving(models, smi, phase=4, ar=True):
-    """Chain serving (gamma 3, temperature 0.7) of 4 x (128 + 64), and with
-    ``ar`` the autoregressive baseline on the same weights."""
+def phase4_chain_serving(models, smi, phase=4, ar=True, max_new=64):
+    """Chain serving (gamma 3, temperature 0.7) of 4 x (128 + ``max_new``),
+    and with ``ar`` the autoregressive baseline on the same weights."""
     from repro_torch.core.metrics import mbsu
     from repro_torch.core.speculative import SDConfig
     from repro_torch.kernels import ops
@@ -898,16 +970,16 @@ def phase4_chain_serving(models, smi, phase=4, ar=True):
     serve.serve_static(target, t_params, draft, d_params, prompts, 8, sdc, seed=1)
     ops.reset_launches()
     results, tau, tok_s = serve.serve_static(target, t_params, draft, d_params,
-                                             prompts, 64, sdc)
+                                             prompts, max_new, sdc)
     chain_launches = dict(ops.LAUNCHES)
-    ar_tok_s = (serve.serve_static(target, t_params, None, None, prompts, 64,
-                                   sdc)[2] if ar else None)
+    ar_tok_s = (serve.serve_static(target, t_params, None, None, prompts,
+                                   max_new, sdc)[2] if ar else None)
     for r in results:
-        assert len(r.tokens) == 64 and ((r.tokens >= 0)
+        assert len(r.tokens) == max_new and ((r.tokens >= 0)
                                         & (r.tokens < target.cfg.vocab_size)).all()
     assert tau >= 1.0 and math.isfinite(tau), tau
     emit({"phase": phase, "path": "chain", "arch": target.cfg.name,
-          "gamma": 3, "temperature": 0.7,
+          "gamma": 3, "temperature": 0.7, "max_new": max_new,
           "tau": tau, "mbsu": mbsu(tau, c, 3), "tok_s": tok_s,
           "ar_tok_s": ar_tok_s, "launches": chain_launches,
           "note": "tok/s over each batch's wall time, prefill included",
@@ -1727,7 +1799,7 @@ def phase10_quant_serving(smi, weights):
     from repro_torch.spectree.tree import TreeSpec
     bits = {"int8": 8, "int4": 4}[weights]
     key = f"quant_matmul_int{bits}"
-    B, P, NEW = QUANT_B, QUANT_P, 32       # cut from 64 (PERF.md)
+    B, P, NEW = QUANT_B, QUANT_P, 16       # cut from 64, then 32 (PERF.md)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     models = serve.build_models("llama2-7b-chat", False, "cuda",
@@ -3281,6 +3353,9 @@ def phase22_observability(models, smi):
 
 # ------------------------------------------------ the architecture registry (23)
 
+# new tokens a row of 23a's, 24a's and 25a's tree and chain runs: cut from
+# 64 to pay for phase 26 (PERF.md)
+ARCH_NEW = 32
 ARCH_CLI_RUNS = (   # (arch, note printed) served by tree through the CLI
     ("yi-9b", False), ("musicgen-large", True))
 GREEDY_ARCHS = ("phi4-mini-3.8b", "minitron-4b", "chameleon-34b")
@@ -3330,7 +3405,7 @@ def arch_clis(runs=ARCH_CLI_RUNS, phase="23e"):
 def phase23_archs(smi):
     """The registry's served archs on the card. (a) Yi-9B at full width in
     bf16 with its drafter (seeds 0/1): tree (2, 2) and chain gamma 3 over 4
-    x (128 + 64) at temperature 0.7, 48 + 4 * 3 = 60 tree_attention
+    x (128 + 32) at temperature 0.7, 48 + 4 * 3 = 60 tree_attention
     launches a tree round, MBSU with c from ``param_count``; (b) the first
     8 requests of phase 16's chat stream through the continuous engine by
     tree with the prefix cache; (c) greedy exactness with 2 float32 target layers, chain and
@@ -3357,8 +3432,10 @@ def phase23_archs(smi):
           "kv_heads": target.cfg.num_kv_heads, "G": target.cfg.q_per_kv,
           "resident_before_gb": resident_gb,
           "weights_gb": torch.cuda.memory_allocated() / 1e9 - resident_gb})
-    tree, _ = phase3_tree_serving(models, smi, phase="23a")
-    chain = phase4_chain_serving(models, smi, phase="23a", ar=False)
+    tree, _ = phase3_tree_serving(models, smi, phase="23a",
+                                         max_new=ARCH_NEW)
+    chain = phase4_chain_serving(models, smi, phase="23a", ar=False,
+                                 max_new=ARCH_NEW)
     assert all(n == 0 for k, n in tree.items() if k != "tree_attention"), tree
     assert not any(chain.values()), chain
     cont, _ = continuous_pass(models, SDConfig(gamma=3, temperature=0.7), spec,
@@ -3523,7 +3600,7 @@ def phase24_gemma(smi):
     3584, 16 heads on 8 KV heads at hd 256, softcaps 50/30, scaled
     embeddings, V 256000; 10.16B parameters) with its drafter (4 layers, d
     1024, hd 128; 0.571B) in bf16 from seeds 0/1: tree (2, 2) and chain
-    gamma 3 over 4 x (128 + 64) at temperature 0.7, within the window:
+    gamma 3 over 4 x (128 + 32) at temperature 0.7, within the window:
     42 + 4 * 3 = 54 tree_attention launches a tree round and no other
     kernel; (b) the continuous engine past the window
     (``gemma_past_the_window``); (c) greedy exactness within and past the
@@ -3551,8 +3628,10 @@ def phase24_gemma(smi):
           "softcaps": [cfg.attn_softcap, cfg.final_softcap],
           "resident_before_gb": resident_gb,
           "weights_gb": torch.cuda.memory_allocated() / 1e9 - resident_gb})
-    tree, _ = phase3_tree_serving(models, smi, phase="24a")
-    chain = phase4_chain_serving(models, smi, phase="24a", ar=False)
+    tree, _ = phase3_tree_serving(models, smi, phase="24a",
+                                         max_new=ARCH_NEW)
+    chain = phase4_chain_serving(models, smi, phase="24a", ar=False,
+                                 max_new=ARCH_NEW)
     assert all(n == 0 for k, n in tree.items() if k != "tree_attention"), tree
     assert not any(chain.values()), chain
     long_launches = gemma_past_the_window(models, smi)
@@ -3623,7 +3702,7 @@ def moe_ranges():
             setattr(moe, name, fn)
 
 
-def moe_shares(prof, rounds):
+def moe_shares(prof, rounds, total_us):
     """Device ms a round of the kernels launched under each range of
     ``moe_ranges`` and their share of the profile's device time: the
     expert matmuls (``_expert_ffn``'s three bmm), the routing (``_route``:
@@ -3631,7 +3710,6 @@ def moe_shares(prof, rounds):
     (the rest of ``_moe_local``: sort, searchsorted, slot numbering, the
     buffer's copy, the gather and the combine)."""
     from torch.autograd import DeviceType
-    total_us = sum(e.self_device_time_total for e in device_kernels(prof))
     us = {r: sum(e.device_time_total for e in prof.events()
                  if e.name == r and e.device_type == DeviceType.CPU)
           for r in MOE_RANGES.values()}
@@ -3814,9 +3892,14 @@ def drops_probe(cf):
 
 
 def moe_tvdpp(smi):
-    """25e: TVD++ steps of granite's drafter (float32 master weights)
-    against the frozen bf16 granite target through the distill kernels at
-    V 49155 (rows of 196,620 bytes: the kernels' unaligned route), launch
+    """25e: ``tvdpp_steps`` for granite at V 49155 (rows of 196,620
+    bytes: the kernels' unaligned route)."""
+    return tvdpp_steps(GRANITE, "25e", smi, unaligned=True)
+
+
+def tvdpp_steps(arch, phase, smi, unaligned=False):
+    """TVD++ steps of ``arch``'s drafter (float32 master weights) against
+    the frozen bf16 full-width target through the distill kernels, launch
     counts asserted, then one step's kernel route against the plain route
     as phase 7 compares them."""
     from repro_torch.configs import get_config
@@ -3826,14 +3909,14 @@ def moe_tvdpp(smi):
     from repro_torch.models.model import Model
     from repro_torch.training import finetune, make_train_state
     B, S, steps = MOE_TVD["batch"], MOE_TVD["seq"], MOE_TVD["steps"]
-    cfg = get_config(GRANITE)
+    cfg = get_config(arch)
     target = Model(cfg, "cuda")
     t_params = target.init(0)                               # bf16, frozen
     draft = Model(cfg.drafter().replace(vocab_size=cfg.vocab_size), "cuda")
     tc = TrainConfig(warmup_steps=2, total_steps=100)
     state = make_train_state(draft, 1, tc)
     V = cfg.vocab_size
-    assert (V * 4) % 16 != 0
+    assert ((V * 4) % 16 != 0) == unaligned, V
     data = serve.make_prompts(4, S, V, seed=10)
     batches = iter([data[i:i + B] for i in range(0, 4, B)])
     t_sum, d_before = param_checksum(t_params), param_checksum(state["params"])
@@ -3856,7 +3939,7 @@ def moe_tvdpp(smi):
     tokens = torch.as_tensor(data[:B], dtype=torch.long, device=target.device)
     routes = compare_routes(draft, target, state["params"], t_params, tokens,
                             loss_rtol=1e-4, grad_rtol=2e-2)
-    emit({"phase": "25e", "arch": cfg.name, "drafter": draft.cfg.name,
+    emit({"phase": phase, "arch": cfg.name, "drafter": draft.cfg.name,
           "vocab": V, "batch": [B, S], "steps": steps,
           "loss": [h["loss"] for h in hist], "wall_s": wall_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -3873,7 +3956,7 @@ def phase25_moe(smi):
     freed). (a) granite-moe-3b-a800m at full width (32 layers, d 1536, 24
     heads on 8 KV heads at hd 64, 40 experts top-8 of width 512, V 49155;
     3.374B parameters) with its dense drafter (4 layers, d 512; 62.1M) in
-    bf16 from seeds 0/1: tree (2, 2) and chain gamma 3 over 4 x (128 + 64)
+    bf16 from seeds 0/1: tree (2, 2) and chain gamma 3 over 4 x (128 + 32)
     at 0.7, 32 + 4 * 3 = 44 tree_attention launches a tree round and no
     other kernel, where the time goes (torch.profiler: the expert matmuls'
     and the dispatch's shares), the assignments dropped per verify pass
@@ -3913,8 +3996,10 @@ def phase25_moe(smi):
           "router_dtype": str(t_params["layers"][0]["moe"]["router"].dtype),
           "resident_before_gb": resident_gb,
           "weights_gb": torch.cuda.memory_allocated() / 1e9 - resident_gb})
-    tree, breakdown = phase3_tree_serving(models, smi, phase="25a")
-    chain = phase4_chain_serving(models, smi, phase="25a", ar=False)
+    tree, breakdown = phase3_tree_serving(models, smi, phase="25a",
+                                         max_new=ARCH_NEW)
+    chain = phase4_chain_serving(models, smi, phase="25a", ar=False,
+                                 max_new=ARCH_NEW)
     assert all(n == 0 for k, n in tree.items() if k != "tree_attention"), tree
     assert not any(chain.values()), chain
     prompts = serve.make_prompts(4, 128, cfg.vocab_size)
@@ -3972,6 +4057,428 @@ def phase25_moe(smi):
         moe_launches
 
 
+# ------------------------------------------------ recurrent layers (26)
+
+ZAMBA, XLSTM = "zamba2-7b", "xlstm-1.3b"
+REC_B, REC_P, REC_NEW = 4, 128, 64          # 26a, 26b: 4 x (128 + 64)
+ZAMBA_QUANT_SHAPES = {   # (label, K, N) of every quantized matmul of 26d
+    "target": [("wq/wk/wv/wo", 3584, 3584), ("w_gate/w_up", 3584, 14336),
+               ("w_down", 14336, 3584), ("lm_head", 3584, 32000)],
+    "drafter": [("wq/wk/wv/wo", 1024, 1024), ("w_gate/w_up", 1024, 2816),
+                ("w_down", 2816, 1024), ("lm_head", 1024, 32000)]}
+ZAMBA_QUANT_ROWS = (4, 512)   # a recurrent verify feeds one token a call
+SERVED_LINE = re.compile(r"^served 4 requests; tau=", re.M)
+PROFILED_ROUNDS = 1         # 26a, 26b: chain rounds under torch.profiler
+REC_RANGES = {   # (module, function) -> torch.profiler range
+    ("repro_torch.models.ssm", "_causal_conv"): "ssm_conv",
+    ("repro_torch.models.ssm", "chunked_ssd"): "ssd_scan",
+    ("repro_torch.models.ssm", "ssd_steps"): "ssd_scan",
+    ("repro_torch.models.xlstm", "chunked_gla"): "mlstm_scan",
+    ("repro_torch.models.xlstm", "gla_steps"): "mlstm_scan",
+    ("repro_torch.models.xlstm", "_slstm_scan"): "slstm_scan",
+    ("repro_torch.core.speculative", "select_snapshot"): "snapshot_rewind"}
+
+
+@contextlib.contextmanager
+def recurrent_ranges():
+    """Every call of the functions of ``REC_RANGES`` inside a
+    torch.profiler range of its name, by wrappers installed here for the
+    run (not a feature of the package)."""
+    import importlib
+    from torch.profiler import record_function
+    saved = {(m, f): getattr(importlib.import_module(m), f) for m, f in REC_RANGES}
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    for (m, f), fn in saved.items():
+        setattr(importlib.import_module(m), f, ranged(REC_RANGES[(m, f)], fn))
+    try:
+        yield
+    finally:
+        for (m, f), fn in saved.items():
+            setattr(importlib.import_module(m), f, fn)
+
+
+def recurrent_shares(prof, rounds, total_us):
+    """Device ms a round of the kernels launched under each range of
+    ``recurrent_ranges`` and their share of the profile's ``total_us`` of
+    device time."""
+    from torch.autograd import DeviceType
+    us = dict.fromkeys(sorted(set(REC_RANGES.values())), 0.0)
+    for e in prof.events():
+        if e.name in us and e.device_type == DeviceType.CPU:
+            us[e.name] += e.device_time_total
+    out = {}
+    for name, t in us.items():
+        out[f"{name}_ms_per_round"] = t / 1e3 / rounds
+        out[f"share_{name}"] = t / total_us
+    return out
+
+
+def snapshot_bytes(model, cache, gamma, long_context=False):
+    """Bytes of the state a chain round's rewind keeps per snapshot (the
+    recurrent layers' leaves and the attention rings'), the snapshots held
+    a round (gamma; holding a recurrent layer's new dict moves no bytes),
+    and the bytes the rewind moves (``select_snapshot``: a stack of the
+    gamma + 1 versions written and read, then the selected rows)."""
+    from repro_torch.core.speculative import ring_layers
+    rings = ring_layers(model, cache, long_context)
+    kept = sum(t.numel() * t.element_size() for c, ring in zip(cache, rings)
+               if "pos" not in c or ring for t in c.values())
+    return {"state_bytes_per_snapshot": kept,
+            "snapshots_held_bytes": gamma * kept,
+            "rewind_bytes_per_round": (2 * (gamma + 1) + 2) * kept}
+
+
+def reference_init_params(cfg, params):
+    """The parameters the reference's init draws: the port's, plus the
+    block it draws at every shared position of every group, which its
+    forward never reads (ROADMAP §3 item 10)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import layer_kinds
+    if "shared_attn" not in params:
+        return serve.count_params(params)
+    per_set = serve.count_params(params["shared_attn"][0])
+    shared = sum(k == "shared_attn" for k in layer_kinds(cfg))
+    return serve.count_params(params) + shared * per_set
+
+
+def recurrent_serving(arch, phase, smi):
+    """26a / 26b: ``arch`` at full width with its drafter in bf16 from
+    seeds 0/1, chain gamma 3 and AR over 4 x (128 + 64) at 0.7: tau, MBSU
+    with c from ``param_count`` (printed beside the init's), tok/s, host
+    and device ms a round, the device shares of the scans, the conv and
+    the matmuls and the rewind's ms (torch.profiler), the snapshots'
+    bytes, weights and peak GB; no kernel launched; one input through the
+    full forward twice and one short chain run twice for equal bits."""
+    from repro_torch.core.metrics import mbsu
+    from repro_torch.core.speculative import (SDConfig, _prefill_state,
+                                              autoregressive_generate,
+                                              sd_round, speculative_generate)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from torch.profiler import ProfilerActivity, profile
+
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    models = serve.build_models(arch, False, "cuda")
+    target, t_params, draft, d_params, c_init = models
+
+    def gen(seed):
+        return torch.Generator(device=target.device).manual_seed(seed)
+
+    weights_gb = torch.cuda.memory_allocated() / 1e9 - resident_gb
+    cfg = target.cfg
+    c = draft.cfg.param_count() / cfg.param_count()
+    emit({"phase": phase, "arch": cfg.name, "drafter": draft.cfg.name,
+          "layers": cfg.num_layers, "pattern": cfg.layer_pattern,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "param_count": {"target": cfg.param_count(),
+                          "drafter": draft.cfg.param_count()},
+          "params_held": {"target": serve.count_params(t_params),
+                          "drafter": serve.count_params(d_params)},
+          "reference_init_params": {
+              "target": reference_init_params(cfg, t_params),
+              "drafter": reference_init_params(draft.cfg, d_params)},
+          "c_param_count": c, "c_held": c_init,
+          "resident_before_gb": resident_gb, "weights_gb": weights_gb})
+    sdc = SDConfig(gamma=3, temperature=0.7)
+    prompt = torch.as_tensor(serve.make_prompts(REC_B, REC_P, cfg.vocab_size),
+                             device=target.device)
+    steps_s = {}
+    t0 = time.perf_counter()
+    speculative_generate(draft, target, d_params, t_params, prompt, 4, sdc,
+                         gen=gen(1))                       # warm-up
+    torch.cuda.synchronize()
+    steps_s["warm_up"] = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    toks, stats = speculative_generate(draft, target, d_params, t_params,
+                                       prompt, REC_NEW, sdc, gen=gen(0))
+    torch.cuda.synchronize()
+    steps_s["chain"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    _, ar_s = autoregressive_generate(target, t_params, prompt, REC_NEW,
+                                      temperature=0.7, gen=gen(0))
+    steps_s["ar"] = time.perf_counter() - t0
+    new = toks[:, REC_P:REC_P + REC_NEW]
+    assert not any(launches.values()), launches        # no kernel on this path
+    assert bool(((new >= 0) & (new < cfg.vocab_size)).all()), "token out of vocab"
+    assert stats.rounds > 0 and stats.tau >= 1.0 and math.isfinite(stats.tau)
+    wall_ms = stats.wall_time_s * 1e3 / stats.rounds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # one round after a prefill outside the profile; the host's ops are
+    # recorded too (the ranges need them), and a zamba2 round of some
+    # 30,000 ops took about 20 s to record and parse
+    g2 = gen(2)
+    state = _prefill_state(draft, target, d_params, t_params, prompt,
+                           REC_P + 16, sdc, g2)
+    torch.cuda.synchronize()
+    with recurrent_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_ROUNDS):
+            state, _ = sd_round(draft, target, sdc, d_params, t_params, state,
+                                g2)
+        torch.cuda.synchronize()
+    del state
+    breakdown = kernel_breakdown(prof, PROFILED_ROUNDS, wall_ms)
+    if breakdown.get("profiled", True) is not None:
+        breakdown["recurrent"] = recurrent_shares(
+            prof, PROFILED_ROUNDS,
+            breakdown["device_ms_per_round"] * 1e3 * PROFILED_ROUNDS)
+    steps_s["profile"] = time.perf_counter() - t0
+    snaps = {name: snapshot_bytes(m, m.init_cache(REC_B, REC_P + REC_NEW), 3)
+             for name, m in (("target", target), ("drafter", draft))}
+    t0 = time.perf_counter()
+    x = prompt[:, :64]
+    same_logits = torch.equal(target.logits(t_params, x),
+                              target.logits(t_params, x))
+    runs = [speculative_generate(draft, target, d_params, t_params, prompt, 2,
+                                 sdc, gen=gen(3))[0] for _ in range(2)]
+    same_tokens = torch.equal(*runs)
+    steps_s["equal_bits"] = time.perf_counter() - t0
+    emit({"phase": phase, "arch": cfg.name, "path": "chain", "gamma": 3,
+          "temperature": 0.7, "requests": REC_B, "prompt_len": REC_P,
+          "max_new": REC_NEW, "rounds": stats.rounds, "tau": stats.tau,
+          "mbsu": mbsu(stats.tau, c, 3), "mbsu_c_held": mbsu(stats.tau, c_init, 3),
+          "tok_s": stats.tokens_per_s(), "wall_s": stats.wall_time_s,
+          "host_ms_per_round": wall_ms,
+          "ar_tok_s": REC_B * REC_NEW / ar_s, "ar_wall_s": ar_s,
+          "ar_host_ms_per_token": ar_s * 1e3 / REC_NEW,
+          "launches": launches, "where_the_time_goes": breakdown,
+          "snapshots": snaps,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "forward_twice_equal_bits": same_logits,
+          "chain_twice_equal_tokens": same_tokens, "steps_s": steps_s,
+          "nvidia_smi": smi})
+    assert same_logits and same_tokens, "the same seeds gave different bits"
+    del models, target, draft, t_params, d_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tau": stats.tau, "tok_s": stats.tokens_per_s()}
+
+
+def recurrent_greedy_exactness():
+    """26c: temperature 0 in float32 at published widths: zamba2 cut to 7
+    blocks (one group of six Mamba blocks and a shared block) with its
+    float32 drafter, with itself as its drafter and with an untrained
+    EAGLE head; xlstm cut to 2 blocks with its drafter and with itself;
+    chain gamma 3 over 2 x (64 + 16) must give the target's greedy tokens,
+    and the self-drafted runs must accept every draft."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.speculative import (SDConfig,
+                                              autoregressive_generate,
+                                              speculative_generate)
+    from repro_torch.draftheads import HeadConfig, HeadDrafter
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    P, M = 64, 16
+    sdc = SDConfig(gamma=3, temperature=0.0)
+    out, ok = [], True
+    for arch, layers, head in ((ZAMBA, 7, True), (XLSTM, 2, False)):
+        cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+        target = Model(cfg, "cuda")
+        t_params = target.init(0)
+        draft = Model(cfg.drafter(), "cuda")
+        d_params = draft.init(1)
+        prompt = torch.as_tensor(serve.make_prompts(2, P, cfg.vocab_size,
+                                                    seed=5), device=target.device)
+        ar, _ = autoregressive_generate(target, t_params, prompt, M,
+                                        temperature=0.0)
+        res = {"arch": cfg.name, "target_layers": layers, "dtype": "float32",
+               "drafter": draft.cfg.name, "prompt": [2, P], "max_new": M}
+        drafters = [("chain", draft, d_params), ("self_draft", target, t_params)]
+        if head:
+            hd = HeadDrafter(HeadConfig.for_target("eagle", cfg))
+            drafters.append(("eagle", hd, hd.init(1, target.device,
+                                                  torch.float32)))
+        for name, dm, dp in drafters:
+            toks, st = speculative_generate(dm, target, dp, t_params, prompt,
+                                            M, sdc)
+            res[f"{name}_equals_ar"] = torch.equal(toks[:, :P + M], ar)
+            res[f"{name}_tau"] = st.tau
+        ok &= all(v for k, v in res.items() if k.endswith("_equals_ar"))
+        ok &= res["self_draft_tau"] == 4.0
+        out.append(res)
+        del target, draft, t_params, d_params, drafters
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, ok
+
+
+def quant_passes_of(model, params) -> int:
+    """quant_matmul launches of one forward pass of a quantized model: the
+    QWeights every layer runs (a shared attention layer its set's), and
+    the lm head once."""
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.quant.qweight import QWeight
+    per_layer = sum(isinstance(w, QWeight) for lp in layer_params(params, model.cfg)
+                    for w in _leaves(lp))
+    return per_layer + isinstance(params["lm_head"], QWeight)
+
+
+def zamba_int8(smi):
+    """26d: zamba2 and its drafter drawn in float32, AWQ-calibrated and
+    quantized to int8 weights (the shared sets per set with plain absmax,
+    as the reference; the lm heads with AWQ; Mamba blocks unquantized),
+    int8 KV on the shared attention caches; chain gamma 3 over 4 x (128 +
+    16) at 0.7 with quant_matmul's launches asserted against the quantized
+    matmuls a pass runs times the passes; stored against modeled bytes;
+    then xlstm's int8 refused (ROADMAP §3 item 9)."""
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.core.speculative import (SDConfig, _prefill_state,
+                                              speculative_generate)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.quant import decode_step_bytes, params_nbytes, quantize_params
+    from repro_torch.quant.qweight import QWeight
+    B, P, NEW = 4, 128, 16
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = serve.build_models(ZAMBA, False, "cuda",
+                                QuantConfig(weights="int8"), quant_target=True,
+                                calib_seqs=4, calib_len=P)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    target, t_params, draft, d_params, _ = models
+    for name, m, p in (("target", target, t_params), ("drafter", draft, d_params)):
+        qs = [w for w in _leaves(p) if isinstance(w, QWeight)]
+        have = {(w.in_dim, w.out_dim) for w in qs}
+        want = {(K, N) for _, K, N in ZAMBA_QUANT_SHAPES[name]}
+        assert have == want, (name, have, want)    # phase 2 held every shape
+        assert all(w.pre is None for s in p["shared_attn"] for w in _leaves(s)
+                   if isinstance(w, QWeight)), "a shared set has an AWQ pre-scale"
+        assert p["lm_head"].pre is not None, "the lm head is not AWQ-calibrated"
+        assert not any(isinstance(w, QWeight) for lp in p["layers"]
+                       for w in _leaves(lp.get("mamba", {})))
+    stored = {"target": params_nbytes(t_params), "drafter": params_nbytes(d_params)}
+    modeled = {name: dict(zip(("weight", "scale", "kv", "total"),
+                              decode_step_bytes(m.cfg, B, P + NEW, "int8",
+                                                "int8").row()))
+               for name, m in (("target", target), ("drafter", draft))}
+    sdc = SDConfig(gamma=3, temperature=0.7, kv_quant=True)
+    prompt = torch.as_tensor(serve.make_prompts(B, P, target.cfg.vocab_size),
+                             device=target.device)
+    g = torch.Generator(device=target.device).manual_seed(0)
+    st = _prefill_state(draft, target, d_params, t_params, prompt, P + 16, sdc, g)
+    kv = {name: sorted({str(layer["k"].dtype) if "k" in layer else
+                        str(layer["state"].dtype) for layer in st[name]})
+          for name in ("t_cache", "d_cache")}
+    assert all(layer["k"].dtype == torch.int8 for name in ("t_cache", "d_cache")
+               for layer in st[name] if "k" in layer), kv
+    del st
+    speculative_generate(draft, target, d_params, t_params, prompt, 4, sdc,
+                         gen=torch.Generator(device=target.device).manual_seed(1))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    toks, stats = speculative_generate(
+        draft, target, d_params, t_params, prompt, NEW, sdc,
+        gen=torch.Generator(device=target.device).manual_seed(0))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    R = stats.rounds
+    pt, pd = quant_passes_of(target, t_params), quant_passes_of(draft, d_params)
+    want = {k: 0 for k in launches}
+    want["quant_matmul_int8"] = (1 + 4 * R) * (pt + pd)   # prefill, 4 feeds
+    assert R > 0 and launches == want, (launches, want)
+    new = toks[:, P:P + NEW]
+    assert bool(((new >= 0) & (new < target.cfg.vocab_size)).all())
+    assert stats.tau >= 1.0 and math.isfinite(stats.tau), stats.tau
+    try:
+        quantize_params(Model(get_config(XLSTM), target.device), {},
+                        QuantConfig(weights="int8"))
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    emit({"phase": "26d", "arch": target.cfg.name, "weights": "int8",
+          "awq": True, "quantized": ["target", "drafter"], "build_s": build_s,
+          "build_peak_gb": build_peak_gb, "stored_bytes": stored,
+          "modeled_decode_step_bytes": modeled, "kv_dtypes": kv,
+          "note": "the model bills the Mamba blocks and embeddings at "
+                  "param_dtype (float32), as the reference's does; they are "
+                  "stored in bf16 (the recurrent gates and convs in float32)",
+          "chain": {"rounds": R, "tau": stats.tau, "tok_s": stats.tokens_per_s(),
+                    "wall_s": stats.wall_time_s, "launches": launches,
+                    "quant_matmul_per_round": 4 * (pt + pd)},
+          "launches_per_pass": {"target": pt, "drafter": pd},
+          "requests": B, "prompt_len": P, "max_new": NEW, "temperature": 0.7,
+          "xlstm_int8_refusal": refusal,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "nvidia_smi": smi})
+    assert refusal is not None and "ROADMAP §3 item 9" in refusal, refusal
+    del models, target, draft, t_params, d_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["quant_matmul_int8"]
+
+
+def recurrent_clis():
+    """26f: the serving CLI for zamba2 at full width in a subprocess: by
+    chain (4 requests, 16 + 8 tokens, 0.7) it must exit 0 having served
+    them with no kernel launched; with --tree (in this process: the CPU
+    test runs it as a subprocess) it must exit with the reference's
+    refusal, before building a model."""
+    from repro_torch.launch import serve
+    from repro_torch.spectree.round import TREE_REFUSAL
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        serve.main(["--arch", ZAMBA, "--tree", "--temperature", "0.7"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    out["tree"] = {"cmd": f"serve.main --arch {ZAMBA} --tree", "exit": code,
+                   "s": time.perf_counter() - t0,
+                   "refused": code == TREE_REFUSAL}
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ZAMBA,
+           "--temperature", "0.7", "--requests", "4", "--max-new", "8"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    found = LAUNCH_LINE.search(proc.stdout)
+    out["chain"] = {"cmd": " ".join(cmd[2:]), "rc": proc.returncode,
+                    "s": time.perf_counter() - t0,
+                    "launches": json.loads(found[1]) if found else None,
+                    "served": SERVED_LINE.search(proc.stdout) is not None,
+                    "stdout": proc.stdout.strip().splitlines()[-4:],
+                    "stderr": proc.stderr.strip().splitlines()[-3:]}
+    chain = out["chain"]
+    ok = (chain["rc"] == 0 and chain["launches"] is not None
+          and not any(chain["launches"].values()) and chain["served"]
+          and out["tree"]["refused"])
+    return out, ok
+
+
+def phase26_recurrent(smi):
+    """Recurrent layers and hybrids (after phase 25): (a) zamba2-7b and
+    (b) xlstm-1.3b served by chain at full width (``recurrent_serving``);
+    (c) greedy exactness (``recurrent_greedy_exactness``); (d) zamba2 at
+    int8 (``zamba_int8``); (e) 2 TVD++ steps of zamba2's drafter against
+    the full-width target at 2 x 1024, V 32000 (``tvdpp_steps``); (f) the
+    serving CLI (``recurrent_clis``). Returns the launches of (d) and
+    (e)."""
+    serving = {arch: recurrent_serving(arch, phase, smi)
+               for arch, phase in ((ZAMBA, "26a"), (XLSTM, "26b"))}
+    out, ok = recurrent_greedy_exactness()
+    emit({"phase": "26c", "temperature": 0.0, "gamma": 3, "runs": out})
+    assert ok, ("recurrent greedy tokens differ from AR", out)
+    quant = zamba_int8(smi)
+    distill = tvdpp_steps(ZAMBA, "26e", smi)
+    clis, ok = recurrent_clis()
+    emit({"phase": "26f", "cli": clis, "serving": serving, "nvidia_smi": smi})
+    assert ok, ("zamba2's serving CLI runs failed", clis)
+    return {**distill, "quant_matmul_int8": quant}
+
+
 PHASE_SECONDS = {}
 
 
@@ -4003,6 +4510,7 @@ def main():
     t_start = time.perf_counter()
     smi = timed(1, phase1_device_and_build)
     timings = timed(2, phase2_kernels)
+    zamba_m4 = timings.pop("quant_matmul_int8_zamba2_m4")
     models = timed("build", serve.build_models, "llama2-7b-chat", False, "cuda")
     launches, _ = timed(3, phase3_tree_serving, models, smi)
     chain_launches = timed(4, phase4_chain_serving, models, smi)
@@ -4026,6 +4534,9 @@ def main():
     torch.cuda.empty_cache()
     moe_tree, moe_launches = timed(25, phase25_moe, smi)
     arch_launches += moe_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_launches = timed(26, phase26_recurrent, smi)
     torch.cuda.empty_cache()
     timed(5, phase5_greedy_exactness)
     torch.cuda.empty_cache()
@@ -4081,6 +4592,12 @@ def main():
         # steps (the distill kernels)
         kernels[-1]["moe_path_launches"] = (
             moe_tree if name == "tree_attention" else moe_launches[name])
+        # launches on the recurrent path (phase 26): zamba2's int8 chain
+        # (quantized matmul) and TVD++ steps (the distill kernels); its
+        # chain and AR rounds in bf16 launch none
+        kernels[-1]["recurrent_path_launches"] = rec_launches.get(name, 0)
+        if name == "quant_matmul_int8":
+            kernels[-1]["zamba2_m4"] = zamba_m4
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
           "phase_seconds": PHASE_SECONDS})
     emit({"kernels": kernels})

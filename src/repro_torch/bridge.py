@@ -29,13 +29,12 @@ import re
 import numpy as np
 import torch
 
-from .configs.base import ModelConfig
+from .configs.base import SHARED_ATTN, ModelConfig
+from .models.layers import FLOAT32_LEAVES
 from .quant.qweight import QWeight
 
 _KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
-# leaves kept in float32 whatever the weights' dtype: the norms, and an MoE
-# layer's router, which the reference always holds in float32
-_NORMS = ("norm1", "norm2", "final_norm", "q_norm", "k_norm", "router")
+_NORMS = FLOAT32_LEAVES
 # norms of the draft heads: the eagle block's three, and medusa's (K, D)
 _HEAD_NORMS = ("norm1", "norm2", "out_norm", "norm")
 _META_KEY = "__quant_meta__"
@@ -118,11 +117,16 @@ def params_from_jax(np_tree, cfg: ModelConfig, device, dtype=None):
     Layer i of the repeating pattern's k-th kind in repetition r is
     ``groups[k][name][r]``; layers follow in order r-major, then ``rem``.
     An MoE layer's stacked (n, E, d, f) expert banks are sliced the same
-    way. Matmul weights and expert banks are cast to ``dtype``: by default
-    ``cfg``'s compute dtype, as a served model holds them; a model to be
-    trained passes its ``param_dtype``. Norms and MoE routers stay
-    float32, and quantized weights keep their integer ``q`` and float32
-    scales.
+    way, and so are the recurrent blocks' leaves. The reference's stacked
+    (nsets, ...) ``shared_attn`` leaves, ``QWeight``s included, become one
+    dict per set in ``params["shared_attn"]``; the block the reference's
+    init draws at each shared position of each group, which its forward
+    never reads, is dropped: a ``shared_attn`` layer's own dict is empty
+    (ROADMAP §3 item 10). Matmul weights and expert banks are cast to
+    ``dtype``: by default ``cfg``'s compute dtype, as a served model holds
+    them; a model to be trained passes its ``param_dtype``. The leaves of
+    ``models.layers.FLOAT32_LEAVES`` stay float32, and quantized weights
+    keep their integer ``q`` and float32 scales.
     """
     if any(isinstance(k, str) and k.startswith("[") for k in np_tree):
         np_tree = _unflatten(np_tree)
@@ -139,10 +143,15 @@ def params_from_jax(np_tree, cfg: ModelConfig, device, dtype=None):
                          f"stacked {sorted(stacked)} deep and {len(rems)} "
                          f"remainder layers; the config has {len(g)} stacked "
                          f"{n} deep and {len(rem)}")
-    layers = [_slice(groups[k], r) for r in range(n) for k in range(len(g))]
-    layers.extend(rems)
+    layers = [{} if g[k] == SHARED_ATTN else _slice(groups[k], r)
+              for r in range(n) for k in range(len(g))]
+    layers.extend({} if kind == SHARED_ATTN else lp
+                  for kind, lp in zip(rem, rems))
     out = {k: v for k, v in np_tree.items() if k not in ("groups", "rem")}
     out["layers"] = layers
+    if "shared_attn" in np_tree:
+        out["shared_attn"] = [_slice(np_tree["shared_attn"], s)
+                              for s in range(cfg.num_shared_attn_sets)]
     return _convert(out, torch.device(device), dtype or cfg.compute_dtype)
 
 

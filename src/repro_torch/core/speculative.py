@@ -9,12 +9,30 @@ committed token, not yet in either KV cache):
            x_{i+1} from the draft distribution p_{i+1} (gamma+1 feeds; the
            last keeps the draft cache complete on full acceptance).
   verify : the target scores the same gamma+1 tokens in ONE decode call
-           (T = gamma+1) -> q_1 .. q_{gamma+1}.
+           (T = gamma+1) -> q_1 .. q_{gamma+1}. A model with recurrent
+           layers (Mamba, xLSTM, zamba2's hybrid) is fed one token a call
+           instead, drafter and target alike, keeping a snapshot of its
+           cache after each feed.
   accept : x_i is accepted w.p. min(1, q_i(x_i)/p_i(x_i)); at the first
            rejection the replacement comes from norm(max(q - p, 0)); on
            full acceptance the bonus token comes from q_{gamma+1}.
   commit : accepted tokens enter the token buffer, and cache entries past
-           the accepted prefix are invalidated (pos = -1).
+           the accepted prefix are invalidated (pos = -1). A recurrent
+           model's cache is rewound by selection first: each row takes the
+           snapshot after its accepted prefix (``select_snapshot``), then
+           its attention layers are trimmed by position.
+
+Snapshots (the reference's ``d_snaps``/``t_snaps``). The port writes an
+attention layer's new entries into its cache in place, so a snapshot
+must never alias a tensor that a later feed writes into. A recurrent
+layer's decode returns a new dict of new tensors and writes into none, so
+the snapshot keeps that dict as it is: holding it is the copy, with no
+bytes moved. An attention ring narrower than the positions it holds (a
+windowed layer's, with ``long_context`` or Gemma's local layers) has its
+oldest slots overwritten by later feeds, so its snapshot is a clone. Any
+other attention layer is not kept: every feed writes a slot past the
+accepted prefix, and trimming by position rewinds it exactly. Only the
+last feed's cache is not snapshotted: it is the live one.
 
 Two optional state keys serve continuous batching (serving.continuous):
 ``active`` (B,) bool freezes rows that are False (their lengths, pending
@@ -49,26 +67,65 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..configs.base import ATTN, LOCAL_ATTN
+from ..configs.base import ATTN, LOCAL_ATTN, SHARED_ATTN
 from ..draftheads.drafter import head_draft_chain, is_head_drafter
 from ..models.model import Model
+from ..models.transformer import layer_windows
 from ..quant.kvcache import quantize_kv_cache
 from .metrics import SDStats
 from .sampling import probs_from_logits, residual_sample, sample_from_probs
 
 
 def attention_only(cfg) -> bool:
+    """No recurrent layer: zamba2's shared attention counts as attention."""
     g, _, rem = cfg.pattern_blocks()
-    return all(k in (ATTN, LOCAL_ATTN) for k in tuple(g) + tuple(rem))
+    return all(k in (ATTN, LOCAL_ATTN, SHARED_ATTN)
+               for k in tuple(g) + tuple(rem))
 
 
 def trim_attn_cache(cache, limit):
-    """Invalidate cache entries with position > limit (B,), in place. Keyed
-    on the positions, not the slots, so a ring (a windowed layer's cache)
-    is rewound the same way."""
+    """Invalidate attention cache entries with position > limit (B,), in
+    place; recurrent layers' caches are left alone. Keyed on the positions,
+    not the slots, so a ring (a windowed layer's cache) is rewound the same
+    way."""
     for layer in cache:
-        layer["pos"].masked_fill_(layer["pos"] > limit[:, None], -1)
+        if "pos" in layer:
+            layer["pos"].masked_fill_(layer["pos"] > limit[:, None], -1)
     return cache
+
+
+def ring_layers(model: Model, cache, long_context: bool):
+    """Per layer: is it an attention ring that later feeds overwrite (a
+    windowed layer whose cache holds no more slots than its window)?"""
+    return [("pos" in c and w is not None and c["pos"].shape[1] <= w)
+            for c, w in zip(cache, layer_windows(model.cfg, long_context))]
+
+
+def snapshot(cache, rings):
+    """The cache after a feed, as a rewind by selection needs it: a
+    recurrent layer's dict as it is, a clone of an attention ring's, None
+    for another attention layer (rewound by position)."""
+    return [c if "pos" not in c else
+            ({k: v.clone() for k, v in c.items()} if ring else None)
+            for c, ring in zip(cache, rings)]
+
+
+def select_snapshot(cache, snaps, n_acc):
+    """Rewind by selection: in every layer that ``snaps`` keeps, row b
+    takes the cache after n_acc[b] + 1 feeds, ``snaps[j]`` being the one
+    after j + 1 feeds and the live ``cache`` the one after all of them.
+    Returns the new list of layer dicts; other layers are ``cache``'s."""
+    if not snaps:
+        return cache
+    bidx = torch.arange(n_acc.shape[0], device=n_acc.device)
+    out = []
+    for i, layer in enumerate(cache):
+        if snaps[0][i] is None:
+            out.append(layer)
+            continue
+        out.append({k: torch.stack([s[i][k] for s in snaps] + [v])[n_acc, bidx]
+                    for k, v in layer.items()})
+    return out
 
 
 def trim_paged_cache(cache, page_table, limit):
@@ -211,8 +268,9 @@ def sd_draft_phase(draft, sdc: SDConfig, d_params, state, gen, noise=None,
                    target: Model = None, t_params=None):
     """Sample x_1..x_gamma and keep their draft distributions. Returns
     {"x": (g, B), "p_stack": (g+1, B, V) with the bonus slot zeroed,
-    "d_cache"}; a head drafter (which needs ``target`` and ``t_params``)
-    returns no "d_cache"."""
+    "d_cache", "d_snaps": the snapshots after the first gamma feeds of a
+    recurrent drafter, else empty}; a head drafter (which needs ``target``
+    and ``t_params``) returns no "d_cache"."""
     g = sdc.gamma
     lengths, pending = state["lengths"], state["pending"]
     if is_head_drafter(draft):
@@ -222,13 +280,17 @@ def sd_draft_phase(draft, sdc: SDConfig, d_params, state, gen, noise=None,
         return {"x": x, "p_stack": p_stack}
     d_cache = state["d_cache"]
     page_table = masked_page_table(state)
-    xs, ps = [], []
+    rings = (None if attention_only(draft.cfg) else
+             ring_layers(draft, d_cache, sdc.long_context))
+    xs, ps, snaps = [], [], []
     tok = pending
     for j in range(g + 1):
         logits, d_cache = draft.decode_step(d_params, tok[:, None],
                                             (lengths + j)[:, None], d_cache,
                                             long_context=sdc.long_context,
                                             page_table=page_table)
+        if rings is not None and j < g:
+            snaps.append(snapshot(d_cache, rings))
         p = probs_from_logits(logits[:, 0], sdc.temperature, sdc.top_p)
         ps.append(p)
         if j < g:
@@ -239,18 +301,23 @@ def sd_draft_phase(draft, sdc: SDConfig, d_params, state, gen, noise=None,
                      device=pending.device))
     p_stack = torch.stack(ps)
     p_stack[g] = 0.0                     # bonus slot: residual of 0 is q
-    return {"x": x, "p_stack": p_stack, "d_cache": d_cache}
+    return {"x": x, "p_stack": p_stack, "d_cache": d_cache, "d_snaps": snaps}
 
 
 def sd_verify_phase(target: Model, sdc: SDConfig, t_params, state, draft_out):
-    """One target decode over the gamma+1 speculated tokens. Returns
-    {"q_stack": (g+1, B, V), "t_cache"}, and "t_hid" (B, g+1, D) after a
-    head drafter's draft phase (its output holds no "d_cache")."""
+    """One target decode over the gamma+1 speculated tokens (a recurrent
+    target: one per token, ``_verify_by_feeds``). Returns {"q_stack": (g+1,
+    B, V), "t_cache"}, "t_snaps" for a recurrent target, and "t_hid" (B,
+    g+1, D) after a head drafter's draft phase (its output holds no
+    "d_cache")."""
     g = sdc.gamma
     lengths, pending = state["lengths"], state["pending"]
     head = "d_cache" not in draft_out
     feed = torch.cat([pending[:, None], draft_out["x"].T], dim=1)   # (B, g+1)
     positions = lengths[:, None] + torch.arange(g + 1, device=lengths.device)
+    if not attention_only(target.cfg):
+        return _verify_by_feeds(target, sdc, t_params, state["t_cache"],
+                                feed, positions, head)
     out = target.decode_step(t_params, feed, positions, state["t_cache"],
                              long_context=sdc.long_context,
                              page_table=masked_page_table(state),
@@ -259,6 +326,32 @@ def sd_verify_phase(target: Model, sdc: SDConfig, t_params, state, draft_out):
     verify_out = {"q_stack": q_stack.transpose(0, 1), "t_cache": out[1]}
     if head:
         verify_out["t_hid"] = out[2]
+    return verify_out
+
+
+def _verify_by_feeds(target: Model, sdc: SDConfig, t_params, t_cache, feed,
+                     positions, head: bool):
+    """A recurrent target's verify: the gamma+1 tokens one decode call
+    each, with a snapshot after each of the first gamma ("t_snaps"); with
+    a head drafter the hidden states of the feeds, stacked ("t_hid")."""
+    g = feed.shape[1] - 1
+    rings = ring_layers(target, t_cache, sdc.long_context)
+    qs, hs, snaps = [], [], []
+    for j in range(g + 1):
+        out = target.decode_step(t_params, feed[:, j:j + 1],
+                                 positions[:, j:j + 1], t_cache,
+                                 long_context=sdc.long_context,
+                                 return_hidden=head)
+        t_cache = out[1]
+        if j < g:
+            snaps.append(snapshot(t_cache, rings))
+        qs.append(probs_from_logits(out[0][:, 0], sdc.temperature, sdc.top_p))
+        if head:
+            hs.append(out[2][:, 0])
+    verify_out = {"q_stack": torch.stack(qs), "t_cache": t_cache,
+                  "t_snaps": snaps}
+    if head:
+        verify_out["t_hid"] = torch.stack(hs, 1)                  # (B, g+1, D)
     return verify_out
 
 
@@ -292,7 +385,9 @@ def sd_commit_phase(sdc: SDConfig, state, draft_out, verify_out, gen,
     limit = lengths + n_acc                 # keep cache positions <= limit
     new_state = {"tokens": tokens, "lengths": lengths + n_acc + 1,
                  "pending": new_pending,
-                 "t_cache": rewind_cache(state, verify_out["t_cache"], limit)}
+                 "t_cache": rewind_cache(state, select_snapshot(
+                     verify_out["t_cache"], verify_out.get("t_snaps"), n_acc),
+                     limit)}
     if sdc.quality:
         # every chain position is a genuine draft: the drafted mask is all
         # ones
@@ -302,7 +397,8 @@ def sd_commit_phase(sdc: SDConfig, state, draft_out, verify_out, gen,
         # slot j sits at position L + j
         new_state["h_feat"] = verify_out["t_hid"][bidx, n_acc]
     else:
-        new_state["d_cache"] = rewind_cache(state, draft_out["d_cache"], limit)
+        new_state["d_cache"] = rewind_cache(state, select_snapshot(
+            draft_out["d_cache"], draft_out["d_snaps"], n_acc), limit)
     return gate_rows(state, new_state), n_acc
 
 

@@ -71,9 +71,14 @@ embeddings, the Llama pair), the mixture-of-experts ones
 (``granite-moe-3b-a800m``, ``grok-1-314b``; their drafters are dense, and
 ``--quant-weights`` leaves the routers and expert banks at full
 precision), and ``musicgen-large`` as its single-codebook variant, as the
-reference's launcher serves it. An arch whose layers the port does not run
-yet (``zamba2-7b``, ``xlstm-1.3b``) exits with the model's refusal, which
-names the ROADMAP item that ports it. As in the reference's launcher,
+reference's launcher serves it. The recurrent archs are served by chain
+speculation and AR (``zamba2-7b``, Mamba2 with shared attention, and
+``xlstm-1.3b``; a recurrent drafter or target is fed one token a call
+and rewound by snapshots): ``--tree`` and ``--continuous`` exit with the
+reference's refusals (a tree needs a cache slot per node, the paged pool
+pages attention only), and ``--quant-weights`` with an mLSTM drafter
+exits with the refusal of ROADMAP §3 item 9. As in the reference's
+launcher,
 there is no long-context flag (``SDConfig.long_context`` is the library's
 switch):
 
@@ -88,6 +93,8 @@ tokens equal the autoregressive ones only where nothing drops
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch granite-moe-3b-a800m --tree --temperature 0.7
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --temperature 0.7 --requests 4 --prompt-len 128 --max-new 64
 """
 from __future__ import annotations
 
@@ -101,7 +108,7 @@ from ..checkpoint.io import load_draft_heads
 from ..configs import ARCHS, QuantConfig, get_config, reduced
 from ..core.datagen import DatagenConfig, generate_distillation_dataset
 from ..core.metrics import SDStats, latency_percentiles, mbsu
-from ..core.speculative import SDConfig
+from ..core.speculative import SDConfig, attention_only
 from ..draftheads import HeadConfig, HeadDrafter, is_head_drafter
 from ..kernels import ops
 from ..models.model import Model
@@ -109,12 +116,14 @@ from ..models.transformer import check_config
 from ..obs import (MetricsRegistry, SLOConfig, Tracer, acceptance_report,
                    attribution_report, format_acceptance_report,
                    format_attribution, torch_profile)
+from ..configs.base import MLSTM
 from ..quant import cast_unquantized, params_nbytes, quantize_params
-from ..serving.continuous import ContinuousEngine
+from ..quant.calib import MLSTM_REFUSAL
+from ..serving.continuous import ContinuousEngine, check_pageable
 from ..serving.engine import Request, ServingEngine
 from ..serving.scheduler import ServeRequest
 from ..traffic import MIXES, make_mix
-from ..spectree.round import tree_speculative_generate
+from ..spectree.round import TREE_REFUSAL, tree_speculative_generate
 from ..spectree.tree import TreeSpec
 
 
@@ -152,6 +161,26 @@ def serving_config(arch: str, small: bool, note: bool = False):
             print(f"note: serving single-codebook variant of {cfg.name}")
         cfg = cfg.replace(num_codebooks=1)
     return cfg
+
+
+def check_paths(cfg, args) -> None:
+    """Refuse, before any model is built, what the reference refuses for
+    ``cfg``'s target and drafter (``ValueError``): a recurrent model on
+    the paged pool (``--continuous``) or in a tree round (``--tree``), and
+    quantized mLSTM weights."""
+    drafter = None if args.draft_head or args.no_draft else cfg.drafter()
+    models = [(cfg, "target")] + ([(drafter, "draft")] if drafter else [])
+    if args.continuous:
+        for m, name in models:
+            check_pageable(m, name)
+    if args.tree and not all(attention_only(m) for m, _ in models):
+        raise ValueError(TREE_REFUSAL)
+    quantized = [drafter] if args.quant_weights and drafter else []
+    if args.quant_target:
+        quantized.append(cfg)
+    for m in quantized:
+        if MLSTM in m.layer_pattern:
+            raise ValueError(f"{m.name}: {MLSTM_REFUSAL}")
 
 
 def build_models(arch: str, small: bool, device, quant: QuantConfig = None,
@@ -531,8 +560,10 @@ def main(argv=None):
     elif args.head_ckpt is not None:
         ap.error("--head-ckpt requires --draft-head")
 
-    try:        # a config the port cannot run yet exits with its reason
-        check_config(serving_config(args.arch, args.reduced, note=True))
+    try:        # what the port or the reference refuses exits with its reason
+        cfg = serving_config(args.arch, args.reduced, note=True)
+        check_config(cfg)
+        check_paths(cfg, args)
     except ValueError as e:
         raise SystemExit(str(e))
     quant = (QuantConfig(weights=args.quant_weights,

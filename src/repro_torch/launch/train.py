@@ -25,9 +25,10 @@ head checkpoint (``checkpoint.save_draft_heads``) that ``launch.serve
       --reduced --steps 50 --draft-head eagle --save heads.npz
 
 ``--arch`` takes every key of ``configs.ARCHS``; an MoE target's loss adds
-its router aux (``loss_ce``). An arch whose layers the port does not run
-yet (recurrent layers, MusicGen's four codebooks) exits with the model's
-refusal, which names the ROADMAP item that ports it.
+its router aux (``loss_ce``), and the recurrent archs (``zamba2-7b``,
+``xlstm-1.3b``) train through their chunked scans. An arch whose
+features the port does not run yet (MusicGen's four codebooks) exits with
+the model's refusal, which names the ROADMAP item that ports it.
 
 The synthetic corpus holds six V x V float64 transition matrices, so a
 full-width vocabulary (Llama-2's 32000: 49 GB) is refused; ``--reduced``

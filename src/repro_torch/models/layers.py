@@ -21,6 +21,14 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 
+#: leaves held in float32 whatever the weights' dtype, as the reference
+#: holds or reads them: the norms, an MoE router, and the gates, convs,
+#: skips and biases of the recurrent blocks (``models.ssm``,
+#: ``models.xlstm``)
+FLOAT32_LEAVES = ("norm1", "norm2", "final_norm", "q_norm", "k_norm",
+                  "router", "norm_w", "A_log", "dt_bias", "D", "conv_w",
+                  "conv_b", "w_if", "b_if", "r_gates", "b_gates")
+
 #: set by ``quant.calib.capture_activations`` during AWQ calibration:
 #: records the per-input-channel activation absmax at every matmul site.
 _ACT_CAPTURE = None

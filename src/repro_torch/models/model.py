@@ -90,8 +90,9 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, long_context: bool = False,
                    kv_quant: bool = False):
-        """Per-layer KV caches; a windowed layer's is a ring of
-        ``min(max_len, window)`` slots."""
+        """Per-layer caches: an attention layer's KV cache (a windowed
+        layer's is a ring of ``min(max_len, window)`` slots), a recurrent
+        layer's zero state."""
         return tfm.init_cache(self.cfg, batch, max_len, self.device,
                               long_context, kv_quant)
 

@@ -1,4 +1,4 @@
-"""The dense decoder stack (``repro.models.transformer``):
+"""The decoder stack (``repro.models.transformer``):
 ``embed -> layers -> final_norm -> lm_head``.
 
 The reference stacks each group's parameters on a leading layer axis and
@@ -6,13 +6,29 @@ scans over it; the port keeps one parameter dict and one cache dict per
 layer, in ``params["layers"]`` and a list of caches, and loops over them.
 Layer i is of kind ``layer_kinds(cfg)[i]``: the repeating pattern r-major,
 then the remainder, the order in which ``bridge.params_from_jax`` unstacks
-the reference's groups. The ``attn`` and ``local_attn`` kinds are ported,
-with qk-norm, softcaps, sliding windows, long-context windows and scaled
-embeddings (Gemma-2), and a layer's FFN is a SwiGLU or, in an MoE config,
-the experts of ``models.moe`` under ``"moe"``; ``check_config`` refuses
-every other kind and feature of the registry, naming the ROADMAP item
-(queue 1) that ports it, so that no config runs with a feature silently
-dropped.
+the reference's groups. Every kind of the registry runs: ``attn`` and
+``local_attn`` (qk-norm, softcaps, sliding and long-context windows,
+scaled embeddings), ``mamba`` (``models.ssm``), ``mlstm`` and ``slstm``
+(``models.xlstm``), and zamba2's ``shared_attn``. Only attention kinds
+carry an FFN (a SwiGLU or, in an MoE config, the experts of
+``models.moe``), and only where ``d_ff > 0`` or the config has experts,
+so xlstm's d_ff 0 is legal.
+
+A ``shared_attn`` layer holds no weights of its own: its dict in
+``params["layers"]`` is empty, and it runs the block of
+``params["shared_attn"][s]`` (norm1, attn, norm2, mlp), one dict per set,
+where s is its group's index modulo ``num_shared_attn_sets`` (the
+remainder's: the group count n; the reference's ``_select_shared``). The
+reference's init also draws a block at every shared position of every
+group that its forward never reads; the port allocates none of them
+(ROADMAP §3 item 10). Each application keeps its own KV cache.
+
+Caches, one dict per layer: attention {"k", "v", "pos"} (and int8
+scales), Mamba {"state", "conv"}, mLSTM {"state"}, sLSTM {"c", "n", "h",
+"m"}. Attention decode writes into its cache in place; a recurrent
+layer's decode returns a new dict of new tensors. ``check_config`` refuses
+only more than one codebook, naming the ROADMAP item (queue 1) that ports
+it.
 """
 from __future__ import annotations
 
@@ -21,28 +37,27 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN, LOCAL_ATTN, MAMBA, MLSTM, SHARED_ATTN, SLSTM
 from . import attention as attn_mod
+from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .layers import (dense_param, embed_tokens, lm_head_logits, rms_norm,
                      swiglu, trunc_normal)
 from .moe import init_moe, moe_ffn
 
 
-# ROADMAP.md queue 1 items that port what the decoder refuses
+# the ROADMAP.md queue 1 item that ports what the decoder refuses
 _CODEBOOKS = ("ROADMAP §1 item 3 (multi-codebook embeddings, heads and loss, "
               "musicgen-large with K 4)")
-_RECURRENT = "ROADMAP §1 item 5 (recurrent layers and hybrids)"
-_ITEM_OF_KIND = {MAMBA: _RECURRENT, MLSTM: _RECURRENT, SLSTM: _RECURRENT,
-                 SHARED_ATTN: _RECURRENT}
-_ATTN_KINDS = (ATTN, LOCAL_ATTN)
+_ATTN_KINDS = (ATTN, LOCAL_ATTN, SHARED_ATTN)
+_KINDS = _ATTN_KINDS + (MAMBA, MLSTM, SLSTM)
 
 
 def check_config(cfg):
-    """Raise ``ValueError`` naming the ROADMAP item of the first layer kind
-    or feature of ``cfg`` that the port does not run yet: recurrent and
-    shared-attention layers, more than one codebook. Softcaps, qk-norm,
-    ``local_attn`` layers, ``scale_embed`` and experts are ported."""
+    """Raise ``ValueError`` naming the ROADMAP item of a feature of ``cfg``
+    that the port does not run yet: more than one codebook (or a layer
+    kind it does not know)."""
     g, _, rem = cfg.pattern_blocks()
-    refused = [(f"the '{kind}' layer kind", _ITEM_OF_KIND.get(kind, "no item"))
-               for kind in tuple(g) + tuple(rem) if kind not in _ATTN_KINDS]
+    refused = [(f"the '{kind}' layer kind", "no item")
+               for kind in tuple(g) + tuple(rem) if kind not in _KINDS]
     if cfg.num_codebooks > 1:
         refused.append((f"multi-codebook input ({cfg.num_codebooks} "
                         "codebooks)", _CODEBOOKS))
@@ -50,8 +65,11 @@ def check_config(cfg):
         what, item = refused[0]
         raise ValueError(f"{cfg.name}: {what} is not ported yet; it waits "
                          f"for {item}")
-    if cfg.d_ff <= 0:
-        raise ValueError(f"{cfg.name}: the port needs an FFN (d_ff > 0)")
+
+
+def _has_ffn(cfg, kind):
+    """Only attention kinds carry an FFN (the reference's ``_has_ffn``)."""
+    return kind in _ATTN_KINDS and (cfg.d_ff > 0 or cfg.is_moe)
 
 
 def layer_kinds(cfg):
@@ -59,6 +77,21 @@ def layer_kinds(cfg):
     remainder."""
     g, n, rem = cfg.pattern_blocks()
     return tuple(g) * n + tuple(rem)
+
+
+def shared_set(cfg, i):
+    """The weight set a ``shared_attn`` layer i runs: its group's index
+    modulo ``num_shared_attn_sets``; the remainder's group index is n."""
+    g, n, _ = cfg.pattern_blocks()
+    return min(i // len(g), n) % cfg.num_shared_attn_sets
+
+
+def layer_params(params, cfg):
+    """The parameter dict every layer runs, in order: its own, or for a
+    ``shared_attn`` layer its shared set's."""
+    return [params["shared_attn"][shared_set(cfg, i)] if kind == SHARED_ATTN
+            else lp for i, (kind, lp) in enumerate(zip(layer_kinds(cfg),
+                                                       params["layers"]))]
 
 
 def _block_window(cfg, kind, long_context):
@@ -72,7 +105,8 @@ def _block_window(cfg, kind, long_context):
 
 
 def layer_windows(cfg, long_context=False):
-    """``_block_window`` of every layer in order."""
+    """``_block_window`` of every layer in order (a recurrent layer's is
+    not read)."""
     return [_block_window(cfg, kind, long_context) for kind in layer_kinds(cfg)]
 
 
@@ -80,7 +114,9 @@ def init_params(gen, cfg, device, dtype=None):
     """Seeded random parameters drawn from ``gen`` on ``device``: matmul
     weights and expert banks in ``dtype`` (default: the compute dtype, for
     serving; training passes ``cfg.param_dtype``), norm weights in float32
-    (zeros), an MoE router in float32."""
+    (zeros), an MoE router and the recurrent blocks' gates, convs and
+    biases in float32. Shared attention sets go to
+    ``params["shared_attn"]``; their layers' own dicts are empty."""
     check_config(cfg)
     wdt = dtype or cfg.compute_dtype
     d, hd, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
@@ -105,30 +141,57 @@ def init_params(gen, cfg, device, dtype=None):
         params["lm_head"] = dense_param(gen, d, cfg.vocab_size, wdt, device)
     params["final_norm"] = norm()
 
-    def layer():
-        lp = {"norm1": norm(), "attn": attn(), "norm2": norm()}
-        if cfg.is_moe:
-            lp["moe"] = init_moe(gen, cfg, wdt, device)
+    def block(kind):
+        lp = {"norm1": norm()}
+        if kind in _ATTN_KINDS:
+            lp["attn"] = attn()
+        elif kind == MAMBA:
+            lp["mamba"] = ssm_mod.init_mamba(gen, cfg, wdt, device)
+        elif kind == MLSTM:
+            lp["mlstm"] = xlstm_mod.init_mlstm(gen, cfg, wdt, device)
         else:
-            lp["mlp"] = {"w_gate": dense(d, f), "w_up": dense(d, f),
-                         "w_down": dense(f, d)}
+            lp["slstm"] = xlstm_mod.init_slstm(gen, cfg, wdt, device)
+        if _has_ffn(cfg, kind):
+            lp["norm2"] = norm()
+            if cfg.is_moe:
+                lp["moe"] = init_moe(gen, cfg, wdt, device)
+            else:
+                lp["mlp"] = {"w_gate": dense(d, f), "w_up": dense(d, f),
+                             "w_down": dense(f, d)}
         return lp
 
-    params["layers"] = [layer() for _ in range(cfg.num_layers)]
+    kinds = layer_kinds(cfg)
+    params["layers"] = [{} if kind == SHARED_ATTN else block(kind)
+                        for kind in kinds]
+    if SHARED_ATTN in kinds:
+        params["shared_attn"] = [block(SHARED_ATTN)
+                                 for _ in range(cfg.num_shared_attn_sets)]
     return params
 
 
 def init_cache(cfg, batch, max_len, device, long_context=False,
                kv_quant=False):
-    """One empty KV cache dict per layer (positions -1 = empty slot), of
-    ``min(max_len, window)`` slots in a windowed layer (a ring) and
-    ``max_len`` in the others. ``kv_quant`` builds the int8 layout
-    (``quant.kvcache``): int8 k/v plus fp32 per-(slot, head)
-    "k_scale"/"v_scale" of shape (B, S, Hkv)."""
+    """One empty cache dict per layer. An attention layer's KV cache
+    (positions -1 = empty slot) has ``min(max_len, window)`` slots in a
+    windowed layer (a ring) and ``max_len`` in the others; ``kv_quant``
+    builds the int8 layout (``quant.kvcache``): int8 k/v plus fp32
+    per-(slot, head) "k_scale"/"v_scale" of shape (B, S, Hkv). A recurrent
+    layer's holds its zero state."""
     check_config(cfg)
     kv_dtype = torch.int8 if kv_quant else cfg.compute_dtype
     caches = []
-    for window in layer_windows(cfg, long_context):
+    for kind, window in zip(layer_kinds(cfg),
+                            layer_windows(cfg, long_context)):
+        if kind == MAMBA:
+            caches.append(ssm_mod.init_mamba_cache(cfg, batch,
+                                                   cfg.compute_dtype, device))
+            continue
+        if kind == MLSTM:
+            caches.append(xlstm_mod.init_mlstm_cache(cfg, batch, device))
+            continue
+        if kind == SLSTM:
+            caches.append(xlstm_mod.init_slstm_cache(cfg, batch, device))
+            continue
         size = min(max_len, window) if window else max_len
         shape = (batch, size, cfg.num_kv_heads, cfg.head_dim_)
         c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
@@ -151,12 +214,19 @@ def init_paged_cache(cfg, num_pages, page_size, device, kv_quant=False):
     (serving.kv_pool), and physical page 0 is the null page. ``kv_quant``
     stores int8 k/v plus fp32 per-(page slot, head) "k_scale"/"v_scale".
     Windowed layers get the same pool: pages keep every position, and the
-    window only masks.
+    window only masks. A recurrent layer's state is O(1) a row and has
+    nothing to page: such a pattern is refused with the reference's
+    ``ValueError``.
 
     The pool is zeroed, not left uninitialised: every row's gathered view
     holds null-page and never-written slots at probability 0, and a
     non-finite value there would turn 0 * V into NaN."""
     check_config(cfg)
+    g, _, rem = cfg.pattern_blocks()
+    for kind in tuple(g) + tuple(rem):
+        if kind not in _ATTN_KINDS:
+            raise ValueError("paged KV cache requires an attention-only "
+                             f"pattern; got {kind}")
     shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim_)
     kv_dtype = torch.int8 if kv_quant else cfg.compute_dtype
     pools = []
@@ -182,19 +252,64 @@ def _ffn(lp, x, cfg, with_aux=False):
     return swiglu(lp["mlp"], x), None
 
 
-def _train_layer(lp, x, positions, cfg, window, with_aux):
-    x = x + attn_mod.causal_attention(lp["attn"], rms_norm(x, lp["norm1"],
-                                                           cfg.norm_eps),
-                                      positions, cfg, window)
-    y, aux = _ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps), cfg, with_aux)
-    return x + y, aux
+def _mixer(lp, kind, h, cfg, mode, positions, cache, window, cache_len,
+           slots, attn_mask, page_table):
+    """The layer's attention or recurrent block on its normed input:
+    (y, its cache after the call; None in training)."""
+    if kind in _ATTN_KINDS:
+        if mode == "train":
+            return attn_mod.causal_attention(lp["attn"], h, positions, cfg,
+                                             window), None
+        if mode == "prefill":
+            return attn_mod.prefill_attention(lp["attn"], h, positions, cfg,
+                                              cache_len, window)
+        if page_table is not None:
+            return attn_mod.paged_decode_attention(
+                lp["attn"], h, cache, page_table, positions, cfg, window,
+                slots=slots, attn_mask=attn_mask)
+        return attn_mod.decode_attention(lp["attn"], h, cache, positions, cfg,
+                                         window, slots=slots,
+                                         attn_mask=attn_mask)
+    if kind == MAMBA:
+        if mode == "decode":
+            y, (st, conv) = ssm_mod.mamba_decode(lp["mamba"], h, cfg,
+                                                 cache["state"], cache["conv"])
+        else:
+            y, (st, conv) = ssm_mod.mamba_forward(lp["mamba"], h, cfg)
+        return y, {"state": st, "conv": conv}
+    if kind == MLSTM:
+        if mode == "decode":
+            y, st = xlstm_mod.mlstm_decode(lp["mlstm"], h, cfg, cache["state"])
+        else:
+            y, st = xlstm_mod.mlstm_forward(lp["mlstm"], h, cfg)
+        return y, {"state": st}
+    return xlstm_mod.slstm_forward(lp["slstm"], h, cfg,
+                                   cache if mode == "decode" else None)
+
+
+def apply_block(lp, kind, x, cfg, mode, positions, cache=None, window=None,
+                cache_len=0, slots=None, attn_mask=None, page_table=None,
+                with_aux=False):
+    """One pre-norm layer: (x after it, its cache (None in training), the
+    MoE aux with ``with_aux`` or None)."""
+    y, c = _mixer(lp, kind, rms_norm(x, lp["norm1"], cfg.norm_eps), cfg,
+                  mode, positions, cache, window, cache_len, slots, attn_mask,
+                  page_table)
+    x = x + y
+    aux = None
+    if _has_ffn(cfg, kind):
+        y, aux = _ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps), cfg,
+                      with_aux)
+        x = x + y
+    return x, (None if mode == "train" else c), aux
 
 
 def backbone(params, tokens, cfg, mode, positions=None, cache=None,
              long_context=False, cache_len=0, slots=None, attn_mask=None,
              page_table=None, with_aux=False):
     """tokens: (B, S) int. ``mode`` is "train" (no caches), "prefill"
-    (builds caches of ``cache_len`` slots in every layer, as the
+    (builds caches of ``cache_len`` slots in every attention layer, and a
+    recurrent layer's state after the prompt from a zero state, as the
     reference does) or "decode" (writes into ``cache``; with
     ``page_table`` (B, max_pages) the cache is the shared paged pool of
     ``init_paged_cache``). Every mode attends within each layer's
@@ -210,45 +325,37 @@ def backbone(params, tokens, cfg, mode, positions=None, cache=None,
     ``torch.utils.checkpoint`` while gradients are recorded, so backward
     recomputes its activations (the reference's ``jax.checkpoint`` of the
     layer scan)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r} is not ported")
     x = embed_tokens(params["embed"], tokens).to(cfg.compute_dtype)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     B, S = tokens.shape
-    windows = layer_windows(cfg, long_context)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
+    layers = zip(layer_kinds(cfg), layer_params(params, cfg),
+                 layer_windows(cfg, long_context))
     if mode == "train":
         remat = cfg.remat and torch.is_grad_enabled()
         aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
                      if with_aux else None)
-        for lp, window in zip(params["layers"], windows):
+        for kind, lp, window in layers:
             if remat:
-                x, aux = checkpoint(_train_layer, lp, x, positions, cfg,
-                                    window, with_aux, use_reentrant=False)
+                x, _, aux = checkpoint(apply_block, lp, kind, x, cfg, mode,
+                                       positions, None, window,
+                                       with_aux=with_aux, use_reentrant=False)
             else:
-                x, aux = _train_layer(lp, x, positions, cfg, window, with_aux)
+                x, _, aux = apply_block(lp, kind, x, cfg, mode, positions,
+                                        window=window, with_aux=with_aux)
             if aux is not None:
                 aux_total = aux_total + aux
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
     caches = []
-    for i, (lp, window) in enumerate(zip(params["layers"], windows)):
-        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        if mode == "prefill":
-            y, c = attn_mod.prefill_attention(lp["attn"], h, positions, cfg,
-                                              cache_len, window)
-        elif mode == "decode" and page_table is not None:
-            y, c = attn_mod.paged_decode_attention(
-                lp["attn"], h, cache[i], page_table, positions, cfg, window,
-                slots=slots, attn_mask=attn_mask)
-        elif mode == "decode":
-            y, c = attn_mod.decode_attention(lp["attn"], h, cache[i],
-                                             positions, cfg, window,
-                                             slots=slots, attn_mask=attn_mask)
-        else:
-            raise ValueError(f"mode {mode!r} is not ported")
-        x = x + y
-        x = x + _ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps), cfg)[0]
+    for i, (kind, lp, window) in enumerate(layers):
+        x, c, _ = apply_block(lp, kind, x, cfg, mode, positions,
+                              cache[i] if mode == "decode" else None, window,
+                              cache_len, slots, attn_mask, page_table)
         caches.append(c)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
 

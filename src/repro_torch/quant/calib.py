@@ -21,7 +21,14 @@ Only 2-D matmul weights with the canonical names (QKV and output
 projections, SwiGLU, lm head) are quantized; embeddings, norms, and an
 MoE layer's router and (E, K, N) expert banks stay full precision, as in
 the reference. The calibration forward runs the MoE blocks; their expert
-matmuls do not pass through ``matmul_param``, so they record nothing.
+matmuls do not pass through ``matmul_param``, so they record nothing. It
+runs the recurrent blocks too; a Mamba block's projections (``w_in``,
+``w_out``) are not quantized. zamba2's shared attention sets
+(``params["shared_attn"]``) are quantized per set with plain absmax and
+no AWQ pre-scale, even with AWQ on, as the reference quantizes its
+stacked sets. An mLSTM block holds ``w_up`` and ``w_down``, names the
+reference quantizes and then cannot read (ROADMAP §3 item 9):
+``quantize_params`` refuses a config with mLSTM layers.
 """
 from __future__ import annotations
 
@@ -31,10 +38,16 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..configs.base import QuantConfig
+from ..configs.base import MLSTM, QuantConfig
 from ..models import layers as layers_mod
+from ..models.layers import FLOAT32_LEAVES
 from ..models import transformer as tfm
 from .qweight import QWeight, quantize_weight
+
+#: the refusal of a config with mLSTM layers (ROADMAP.md §3 item 9)
+MLSTM_REFUSAL = ("weight quantization of mLSTM layers is refused: the "
+                 "reference quantizes their w_up and w_down and then cannot "
+                 "read them (ROADMAP §3 item 9)")
 
 #: weight leaves eligible for quantization (2-D matmul weights only)
 QUANT_WEIGHT_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -128,6 +141,8 @@ def quantize_params(model, params, qcfg: QuantConfig,
     bits = qcfg.bits
     if bits == 0:                       # weights=None: nothing to quantize
         return params
+    if MLSTM in model.cfg.layer_pattern:
+        raise ValueError(f"{model.cfg.name}: {MLSTM_REFUSAL}")
     if stats is None:
         stats = {}
         if calib_tokens is not None and qcfg.awq:
@@ -145,8 +160,9 @@ def quantize_params(model, params, qcfg: QuantConfig,
             group = _fit_group(tree.shape[0], qcfg.group_size)
             if group == 0:
                 b = 8                             # odd in-dim: fall back
+        shared = path.startswith("['shared_attn']")      # plain absmax
         return quantize_weight(tree, bits=b, group=group,
-                               act_amax=stats.get(path),
+                               act_amax=None if shared else stats.get(path),
                                awq_alpha=qcfg.awq_alpha)
 
     return walk(params, "")
@@ -154,17 +170,18 @@ def quantize_params(model, params, qcfg: QuantConfig,
 
 def cast_unquantized(params, dtype):
     """Cast the floating leaves that are neither ``QWeight``s nor norm
-    weights nor MoE routers (the embedding, expert banks, and any matmul
-    weight left in float32) to ``dtype``, in a new tree: a model quantized
-    from float32 weights then holds what a served model holds. Norm
-    weights and routers stay float32."""
+    weights nor ``models.layers.FLOAT32_LEAVES`` (the embedding, expert
+    banks, and any matmul weight left in float32) to ``dtype``, in a new
+    tree: a model quantized from float32 weights then holds what a served
+    model holds. Norm weights, routers and the recurrent blocks' gates,
+    convs and biases stay float32."""
     def walk(tree, name=None):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [walk(v) for v in tree]
         if (isinstance(tree, QWeight) or "norm" in (name or "")
-                or name == "router" or not tree.is_floating_point()):
+                or name in FLOAT32_LEAVES or not tree.is_floating_point()):
             return tree
         return tree.to(dtype)
 

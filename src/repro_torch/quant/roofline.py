@@ -1,6 +1,7 @@
 """Modeled bytes moved by one decode step of the quantized path, and by
-one round's draft phase (``repro.quant.roofline``, attention-only models,
-dense or MoE).
+one round's draft phase (``repro.quant.roofline``: dense, MoE and
+hybrid models; zamba2's shared attention counts its KV caches once an
+application and its weights once a set).
 
 Decode is bound by memory: the model reads every live weight byte and
 every live KV byte once per step, with the quantized dtypes and their scale
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..configs.base import ATTN, LOCAL_ATTN, ModelConfig
+from ..configs.base import ATTN, LOCAL_ATTN, SHARED_ATTN, ModelConfig
 
 _BYTES = {"float32": 4.0, "bfloat16": 2.0, "int8": 1.0, "int4": 0.5}
 
@@ -29,9 +30,21 @@ class DecodeBytes:
 
 
 def attn_layer_count(cfg: ModelConfig) -> int:
-    """Attention layers, each owning a KV cache."""
+    """Attention layer occurrences, each owning a KV cache, shared or not."""
     g, n, rem = cfg.pattern_blocks()
-    return sum(1 for k in list(g) * n + list(rem) if k in (ATTN, LOCAL_ATTN))
+    return sum(1 for k in list(g) * n + list(rem)
+               if k in (ATTN, LOCAL_ATTN, SHARED_ATTN))
+
+
+def _attn_weight_count(cfg: ModelConfig) -> int:
+    """Attention layers that own weights: every shared-attention
+    occurrence reads one of ``num_shared_attn_sets`` sets."""
+    g, n, rem = cfg.pattern_blocks()
+    kinds = list(g) * n + list(rem)
+    own = sum(1 for k in kinds if k in (ATTN, LOCAL_ATTN))
+    if SHARED_ATTN in kinds:
+        own += cfg.num_shared_attn_sets
+    return own
 
 
 def decode_step_bytes(cfg: ModelConfig, batch: int, ctx: int,
@@ -49,13 +62,14 @@ def decode_step_bytes(cfg: ModelConfig, batch: int, ctx: int,
     wb = _BYTES[weights]
     scale = 0.0
     L = attn_layer_count(cfg)
+    Lw = _attn_weight_count(cfg)     # weights exist once per shared set
     if weights in ("int8", "int4"):
         d, hd = cfg.d_model, cfg.head_dim_
         mats = [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd),
                 (d, cfg.num_kv_heads * hd), (cfg.num_heads * hd, d)]
         if cfg.d_ff > 0 and not cfg.is_moe:
             mats += [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
-        q_params = L * sum(K * N for K, N in mats)
+        q_params = Lw * sum(K * N for K, N in mats)
         head = 0
         if not cfg.tie_embeddings:       # tied: no separate lm_head weight
             q_params += d * cfg.vocab_size
@@ -66,7 +80,7 @@ def decode_step_bytes(cfg: ModelConfig, batch: int, ctx: int,
         w_bytes = q_params * wb + (cfg.param_count() - q_params) * fpb
         per_layer = sum((K // group_size) * N if weights == "int4" else N
                         for K, N in mats)
-        scale += 4.0 * (L * per_layer + head)
+        scale += 4.0 * (Lw * per_layer + head)
     else:
         w_bytes = cfg.param_count() * wb
     kvb = _BYTES[kv]

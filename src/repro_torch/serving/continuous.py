@@ -102,6 +102,14 @@ def _to_device(a, device):
     return t.to(device, non_blocking=True)
 
 
+def check_pageable(cfg, name: str) -> None:
+    """The reference engine's refusal of a model (``cfg``) with recurrent
+    layers: its state is one per row, with nothing to page."""
+    if not attention_only(cfg):
+        raise ValueError(f"{name} has recurrent layers; the paged KV pool "
+                         "supports attention-only models")
+
+
 @dataclass
 class _Slot:
     state: str = "free"                # free | prefill | decode
@@ -186,10 +194,7 @@ class ContinuousEngine:
         if self.draft is not None:
             models.append((self.draft, "draft"))
         for m, name in models:
-            if not attention_only(m.cfg):
-                raise ValueError(
-                    f"{name} has recurrent layers; the paged KV pool supports "
-                    "attention-only models")
+            check_pageable(m.cfg, name)
         if self.draft_heads is not None:
             if self.tree is not None:
                 self.draft_heads.validate_tree(self.tree.depth)

@@ -54,6 +54,11 @@ from ..draftheads.drafter import head_draft_tree, is_head_drafter
 from ..models.model import Model
 from .tree import TreeSpec, tree_attn_mask
 
+#: the reference's refusal of a recurrent drafter or target: a tree needs
+#: a cache slot per node, and a recurrent state has one per row
+TREE_REFUSAL = ("tree speculative decoding requires attention-only draft "
+                "and target (per-node cache slots)")
+
 
 def _cache_view_width(cache, page_table=None) -> int:
     """Slot count of the attention view the masks must align with: a paged
@@ -149,14 +154,15 @@ def tree_draft_phase(draft, sdc: SDConfig, spec: TreeSpec, d_params,
     """Level-by-level tree expansion. Returns {"node_tok": (N, B),
     "p_node": (N, B, V), "d_cache"}; a head drafter (which needs
     ``target`` and ``t_params``) returns no "d_cache"."""
-    if is_head_drafter(draft):
+    head = is_head_drafter(draft)
+    if (target is not None and not attention_only(target.cfg)) or \
+            (not head and not attention_only(draft.cfg)):
+        raise ValueError(TREE_REFUSAL)
+    if head:
         node_tok, p_node = head_draft_tree(
             draft, d_params, t_params, target.cfg, sdc, spec, state["h_feat"],
             state["pending"], gen, noise)
         return {"node_tok": node_tok, "p_node": p_node}
-    if not attention_only(draft.cfg):
-        raise ValueError("tree speculative decoding requires an "
-                         "attention-only drafter (per-node cache slots)")
     lengths, pending = state["lengths"], state["pending"]
     d_cache = state["d_cache"]
     B = pending.shape[0]
@@ -196,8 +202,7 @@ def tree_verify_phase(target: Model, sdc: SDConfig, spec: TreeSpec, t_params,
     Returns {"q_node": (N, B, V), "t_cache"}, and "t_hid" (B, N, D) after a
     head drafter's draft phase (its output holds no "d_cache")."""
     if not attention_only(target.cfg):
-        raise ValueError("tree speculative decoding requires an "
-                         "attention-only target (per-node cache slots)")
+        raise ValueError(TREE_REFUSAL)
     lengths = state["lengths"]
     dev = lengths.device
     t_cache = state["t_cache"]

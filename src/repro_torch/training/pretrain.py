@@ -33,7 +33,11 @@ def value_and_grad(loss_fn, params, has_aux: bool = False):
     (loss, aux), both detached."""
     p = tree_map(lambda x: x.detach().requires_grad_(), params)
     loss, aux = loss_fn(p) if has_aux else (loss_fn(p), None)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
+    leaves = tree_leaves(p)
+    # a leaf the loss never reads (a shared set no layer selects) gets a
+    # zero gradient, as under jax.value_and_grad
+    grads = iter([torch.zeros_like(x) if g is None else g for x, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))])
     grads = tree_map(lambda _: next(grads), p)
     if has_aux:
         return (loss.detach(), tree_map(torch.Tensor.detach, aux)), grads

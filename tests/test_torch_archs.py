@@ -3,8 +3,10 @@
 Gemma-2-9B (local and global layers, softcaps, scaled embeddings; its
 sliding window is covered in test_torch_windows.py), the mixture-of-
 experts granite-moe-3b-a800m and grok-1-314b (their layer is covered in
-test_torch_moe.py) and MusicGen's single-codebook variant, as both
-launchers serve it.
+test_torch_moe.py), MusicGen's single-codebook variant, as both
+launchers serve it, and the recurrent zamba2-7b (Mamba2 with shared
+attention) and xlstm-1.3b (their layers and rounds are covered in
+test_torch_recurrent.py and test_torch_hybrid.py).
 
 Both packages get the same float32 weights (the reference's seeded init,
 with Chameleon's zero-initialised qk-norm weights replaced by random ones
@@ -20,7 +22,10 @@ of the call, so where the prefill (B x S tokens) or the full forward (B x
 holds them to the reference's own prefill and decode only. One train step
 must move the parameters with a finite loss (``test_smoke_train_step``),
 and greedy chain and tree speculation with the arch's drafter must give
-the target's greedy tokens exactly."""
+the target's greedy tokens exactly; a recurrent arch's tree round is
+refused with the reference's message."""
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +39,8 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.speculative import (SDConfig, autoregressive_generate,
                                           speculative_generate)
 from repro_torch.models.model import Model as TModel
-from repro_torch.spectree.round import tree_speculative_generate
+from repro_torch.models.transformer import layer_params
+from repro_torch.spectree.round import TREE_REFUSAL, tree_speculative_generate
 from repro_torch.spectree.tree import TreeSpec
 from repro_torch.training import make_train_state, make_train_step
 from torch_parity import (dropped_per_call, one_torch_thread,  # noqa: F401
@@ -43,7 +49,9 @@ from torch_parity import (dropped_per_call, one_torch_thread,  # noqa: F401
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ARCHS = ("yi-9b", "phi4-mini-3.8b", "minitron-4b", "chameleon-34b",
-         "gemma2-9b", "granite-moe-3b-a800m", "grok-1-314b", "musicgen-large")
+         "gemma2-9b", "granite-moe-3b-a800m", "grok-1-314b", "musicgen-large",
+         "zamba2-7b", "xlstm-1.3b")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
 LOGIT_TOL = 2e-5        # of the logits' scale (max |logit|), float32
 B, S, CACHE = 2, 16, 24
 
@@ -93,16 +101,29 @@ def assert_close(got, want):
 
 
 def test_param_tree_matches_the_reference(pair):
+    """Layer by layer, the port's tree has its init's leaves; the first
+    attention layer's (zamba2: its shared set's) projections have the
+    config's shapes."""
     jm, _, tm, tp, _ = pair
     cfg = tm.cfg
-    attn = tp["layers"][0]["attn"]
     assert len(tp["layers"]) == cfg.num_layers
+    own = tm.init(0)
+    for got, want in zip(layer_params(tp, cfg), layer_params(own, cfg)):
+        assert got.keys() == want.keys()
+        for mixer in set(MIXERS) & got.keys():
+            assert got[mixer].keys() == want[mixer].keys()
+            for name, leaf in got[mixer].items():
+                assert leaf.shape == want[mixer][name].shape, name
+                assert leaf.dtype == want[mixer][name].dtype, name
+    attns = [lp["attn"] for lp in layer_params(tp, cfg) if "attn" in lp]
+    if not attns:       # xlstm: no attention layer
+        assert cfg.param_count() == jm.cfg.param_count()
+        return
+    attn = attns[0]
     hd = cfg.head_dim_
     assert tuple(attn["wq"].shape) == (cfg.d_model, cfg.num_heads * hd)
     assert tuple(attn["wk"].shape) == (cfg.d_model, cfg.num_kv_heads * hd)
     assert ("q_norm" in attn) == ("k_norm" in attn) == cfg.qk_norm
-    own = tm.init(0)
-    assert own["layers"][0]["attn"].keys() == attn.keys()
     if cfg.is_moe:
         moe = tp["layers"][0]["moe"]
         E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
@@ -161,7 +182,9 @@ def test_train_step_moves_the_parameters(pair):
     new_state, metrics = make_train_step(tm, tc)(state, t, torch.roll(t, -1, 1))
     assert np.isfinite(float(metrics["loss"]))
     assert np.isfinite(float(metrics["grad_norm"]))
-    old, new = state["params"]["layers"][0]["attn"], new_state["params"]["layers"][0]["attn"]
+    mixer = next(m for m in MIXERS if m in state["params"]["layers"][0])
+    old = state["params"]["layers"][0][mixer]
+    new = new_state["params"]["layers"][0][mixer]
     for name in old:
         assert not torch.equal(old[name], new[name]), name
 
@@ -178,20 +201,29 @@ def test_greedy_speculation_equals_the_target_greedy_tokens(pair):
     M = 16
     ar, _ = autoregressive_generate(tm, tp, prompt, M, temperature=0.0)
     sdc = SDConfig(gamma=3, temperature=0.0)
+    recurrent = tm.cfg.arch_type in ("hybrid", "ssm")
     chain, cstats = speculative_generate(draft, tm, dp, tp, prompt, M, sdc)
-    tree, tstats = tree_speculative_generate(draft, tm, dp, tp, prompt, M, sdc,
-                                             TreeSpec((2, 2)))
     assert torch.equal(chain[:, :12 + M], ar)
-    assert torch.equal(tree[:, :12 + M], ar)
-    assert cstats.rounds > 0 and tstats.rounds > 0
+    assert cstats.rounds > 0
+    if recurrent:       # a tree needs a cache slot per node
+        with pytest.raises(ValueError, match=re.escape(TREE_REFUSAL)):
+            tree_speculative_generate(draft, tm, dp, tp, prompt, M, sdc,
+                                      TreeSpec((2, 2)))
+    else:
+        tree, tstats = tree_speculative_generate(draft, tm, dp, tp, prompt,
+                                                 M, sdc, TreeSpec((2, 2)))
+        assert torch.equal(tree[:, :12 + M], ar)
+        assert tstats.rounds > 0
     # a random drafter is never accepted at temperature 0; the target as
     # its own drafter is, so these rounds commit whole drafts and paths
     chain, cstats = speculative_generate(tm, tm, tp, tp, prompt, M, sdc)
-    tree, tstats = tree_speculative_generate(tm, tm, tp, tp, prompt, M, sdc,
-                                             TreeSpec((2, 2)))
     assert torch.equal(chain[:, :12 + M], ar)
-    assert torch.equal(tree[:, :12 + M], ar)
-    assert cstats.tau > 3.0 and tstats.tau > 2.0, (cstats.tau, tstats.tau)
+    assert cstats.tau > 3.0, cstats.tau
+    if not recurrent:
+        tree, tstats = tree_speculative_generate(tm, tm, tp, tp, prompt, M,
+                                                 sdc, TreeSpec((2, 2)))
+        assert torch.equal(tree[:, :12 + M], ar)
+        assert tstats.tau > 2.0, tstats.tau
 
 
 # ------------------------------------------------ qk-norm (chameleon-34b)

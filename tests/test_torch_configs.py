@@ -3,9 +3,10 @@ refusals of the configs whose layers the port does not run yet.
 
 The configs are plain data: every field, ``param_count``, ``drafter()`` and
 ``reduced()`` must equal the reference's exactly (no tolerance). The
-refused archs must raise a ``ValueError`` that names their ROADMAP item at
-construction, from the paged pool's constructor and from both CLIs (an
-exit with the message, not a traceback)."""
+refused arch (MusicGen with its four codebooks) must raise a
+``ValueError`` that names its ROADMAP item at construction, from the paged
+pool's constructor and from the training CLI (an exit with the message,
+not a traceback); ``check_config`` refuses nothing else."""
 import dataclasses
 import os
 import subprocess
@@ -28,13 +29,12 @@ ROOT = Path(__file__).resolve().parents[1]
 ALL = list(jcfgs.ARCHS)
 # arch -> the ROADMAP item its refusal names (ROADMAP.md §1)
 REFUSED = {
-    "zamba2-7b": "ROADMAP §1 item 5",
-    "xlstm-1.3b": "ROADMAP §1 item 5",
     "musicgen-large": "ROADMAP §1 item 3",     # K 4 through Model
 }
 SERVED = ("phi4-mini-3.8b", "minitron-4b", "chameleon-34b", "yi-9b",
           "gemma2-9b", "granite-moe-3b-a800m", "grok-1-314b", "llama2-7b-chat",
-          "llama2-chat-drafter-115m")                  # and musicgen, K 1
+          "llama2-chat-drafter-115m", "zamba2-7b",
+          "xlstm-1.3b")                                # and musicgen, K 1
 
 
 def as_dict(cfg):
@@ -122,47 +122,69 @@ def test_refused_archs_raise_at_construction(arch, size):
 
 
 def test_refusal_names_each_feature():
+    """Only more than one codebook is refused, naming ROADMAP §1 item 3.
+    Softcaps and qk-norm are ported, since item 2 so are scaled embeddings
+    and local_attn layers, since item 4 experts, and since item 5 the
+    recurrent kinds and zamba2's shared attention: those configs
+    construct, with a parameter dict and a cache per layer (empty for a
+    shared_attn layer, whose set sits in ``params["shared_attn"]``), and
+    the recurrent ones refuse the paged pool with the reference's
+    message."""
+    refused = []
+    for arch in ALL:
+        try:
+            tfm.check_config(tcfgs.get_config(arch))
+        except ValueError:
+            refused.append(arch)
+    assert refused == sorted(REFUSED)
     base = tcfgs.reduced(tcfgs.get_config("yi-9b"))
-    for over, item in ((dict(layer_pattern=("mamba",), ssm_state_dim=16), "item 5"),
-                       (dict(layer_pattern=("mamba", "mamba", "shared_attn"),
-                             ssm_state_dim=16, shared_attn_period=2), "item 5"),
-                       (dict(layer_pattern=("mlstm", "slstm")), "item 5"),
-                       (dict(num_codebooks=2), "item 3")):
-        with pytest.raises(ValueError, match=item):
-            Model(base.replace(**over), device="cpu").init(0)
-    # softcaps and qk-norm are ported, since ROADMAP §1 item 2 so are
-    # scaled embeddings and local_attn layers, and since item 4 experts:
-    # those configs construct
+    with pytest.raises(ValueError, match="item 3"):
+        Model(base.replace(num_codebooks=2), device="cpu").init(0)
     Model(base.replace(attn_softcap=50.0, final_softcap=30.0, qk_norm=True),
           device="cpu").init(0)
     for over in (dict(scale_embed=True),
                  dict(layer_pattern=("local_attn", "attn")),
-                 dict(num_experts=4, num_experts_per_tok=2)):
+                 dict(num_experts=4, num_experts_per_tok=2),
+                 dict(layer_pattern=("mamba",), ssm_state_dim=16),
+                 dict(layer_pattern=("mamba", "mamba", "shared_attn"),
+                      ssm_state_dim=16, shared_attn_period=2),
+                 dict(layer_pattern=("mlstm", "slstm"), d_ff=0)):
         model = Model(base.replace(**over), device="cpu")
         params = model.init(0)
+        kinds = tfm.layer_kinds(model.cfg)
         assert len(params["layers"]) == base.num_layers
         assert len(model.init_cache(2, 16)) == base.num_layers
-        assert len(model.init_paged_cache(4, 16)) == base.num_layers
         assert ("moe" in params["layers"][0]) == ("num_experts" in over)
+        assert [lp == {} for lp in params["layers"]] == \
+            [k == "shared_attn" for k in kinds]
+        assert ("shared_attn" in params) == ("shared_attn" in kinds)
+        if set(kinds) <= {"attn", "local_attn", "shared_attn"}:
+            assert len(model.init_paged_cache(4, 16)) == base.num_layers
+        else:
+            with pytest.raises(ValueError, match="paged KV cache requires an "
+                               "attention-only pattern; got m"):
+                model.init_paged_cache(4, 16)
 
 
-@pytest.mark.parametrize("arch", sorted(set(REFUSED) - {"musicgen-large"}))
+@pytest.mark.parametrize("arch", sorted(REFUSED))
 def test_serve_and_train_cli_exit_with_the_refusal(arch):
-    for main in (serve.main, train.main):
-        with pytest.raises(SystemExit) as exc:
-            main(["--arch", arch, "--reduced", "--device", "cpu"])
-        assert REFUSED[arch] in str(exc.value.code), exc.value.code
+    """The training CLI builds MusicGen with its four codebooks and exits
+    with the refusal; the serving CLI serves its single-codebook variant
+    (``test_serve_cli_serves_musicgen_single_codebook``)."""
+    with pytest.raises(SystemExit) as exc:
+        train.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    assert REFUSED[arch] in str(exc.value.code), exc.value.code
 
 
 def test_serve_cli_refusal_is_no_traceback():
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "zamba2-7b", "--reduced", "--device", "cpu"],
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "musicgen-large", "--reduced", "--device", "cpu"],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert proc.returncode == 1, proc
     assert "Traceback" not in proc.stderr, proc.stderr
-    assert REFUSED["zamba2-7b"] in proc.stderr, proc.stderr
+    assert REFUSED["musicgen-large"] in proc.stderr, proc.stderr
 
 
 def test_serve_cli_serves_musicgen_single_codebook(capsys, one_torch_thread):
