@@ -257,8 +257,24 @@ Phases, each printing one JSON line and then one line of its seconds:
      x 1024, V 32000, through the distill kernels, launches asserted, the
      kernel route against the plain route; (f) the serving CLI for
      zamba2 by chain (exit 0, no kernel) and with --tree (exit 1 with the
-     reference's refusal, no traceback).
-Phases 23-26 run after phase 22; phases 10, 11, 13-15, 18 and 21 run before
+     reference's refusal, no traceback);
+ 27. MusicGen-large with its four codebooks (after phase 26): (a) at
+     published width (48 layers, d 2048, 32 heads of 64, d_ff 8192, V
+     2048; 3,254,978,560 parameters, held and by param_count) in bf16 from
+     seed 0, prefill of 4 x (4, 128) ids and 64 greedy decode steps of 4
+     ids a row, the logits of steps 0, 31 and 63 within 5e-2 relative L2
+     of a full forward of the same ids; ms a step, frames/s, the device ms
+     of a step (torch.profiler) against the dry run's H100 memory term for
+     B 4 and a cache of 192 on one card, weights and peak GB; (b) one CE
+     and AdamW step at K 4 and published width cut to 32 layers, float32
+     master weights, remat, 1 x (4, 1024) tokens: ms, peak GB, a loss
+     within 1 of ln V; (c) the dry-run CLI for musicgen-large x
+     decode_32k and yi-9b x train_4k in subprocesses (exit 0, CUDA never
+     initialised), and the dry run of (a)'s shape: its argument bytes
+     within 1% of the memory the real params and cache took, its counted
+     FLOPs equal to FlopCounterMode on the real decode step; no kernel
+     launched in (a) or (b).
+Phases 23-27 run after phase 22; phases 10, 11, 13-15, 18 and 21 run before
 phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
@@ -4479,6 +4495,235 @@ def phase26_recurrent(smi):
     return {**distill, "quant_matmul_int8": quant}
 
 
+MG = "musicgen-large"
+MG_B, MG_P, MG_NEW = 4, 128, 64       # 27a: 4 x (4, 128) + 64 frames
+MG_CHECKED = (0, 31, 63)              # 27a: decode steps held to the forward
+MG_PROFILED = 4                       # 27a: decode steps under the profiler
+# 27a: logits of a decode step against the full forward, both bf16 through
+# 48 layers whose matmuls differ in shape (M 4 against M 768) and so in
+# their sums' order: relative L2 of a step's (B, K, V) logits
+MG_TOL_REL = 5e-2
+# 27b: float32 weights, gradients and two AdamW moments are 16 B a
+# parameter, and the functional update builds new moments and weights
+# (12 B more) beside the clipped gradients (4 B) before the old state is
+# freed: 32 B a parameter, 104 GB at 48 layers. At 32 layers (2.18B
+# parameters) 70 GB, plus remat activations of 1 x (4, 1024) tokens.
+MG_TRAIN = dict(batch=1, seq=1024, layers=32)
+MG_ARG_TOL = 1e-2                     # 27c: argument bytes against the card
+DRYRUN_CLI = ((MG, "decode_32k"), ("yi-9b", "train_4k"))
+
+
+def start_dryrun_clis():
+    """27c: the dry-run CLI for each of ``DRYRUN_CLI`` in a subprocess of
+    its own (no card: they run beside 27a and 27b on the host's cores)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return {f"{arch} x {shape}": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=ROOT, env=env) for arch, shape in DRYRUN_CLI}
+
+
+def finish_dryrun_clis(procs, timeout=300):
+    """Each CLI's exit code and the numbers of its JSON line; every one
+    must exit 0 without initialising CUDA."""
+    out, ok = {}, True
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        lines = stdout.strip().splitlines()
+        rec = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+        good = proc.returncode == 0 and rec.get("ok") and \
+            rec.get("cuda_initialized") is False
+        ok &= bool(good)
+        out[name] = {"rc": proc.returncode, **{k: rec.get(k) for k in (
+            "chips", "flops_per_chip", "counted_flops_per_chip",
+            "counted_over_analytic", "hbm_bytes_per_chip", "t_compute_s",
+            "t_memory_s", "bottleneck", "useful_flops_ratio",
+            "argument_bytes_per_rank", "fits_one_card", "trace_s",
+            "host_peak_rss_gb", "cuda_initialized")}}
+        if not good:
+            out[name]["stderr"] = stderr[-1500:]
+    return out, ok
+
+
+def codebook_decode(smi):
+    """27a and the in-process half of 27c: MusicGen-large with its four
+    codebooks at published width in bf16 from seed 0; prefill of 4 x (4,
+    128), 64 greedy decode steps of 4 ids a row, the checked steps' logits
+    against a full forward of the same ids; ms a step, frames/s, the
+    device ms of a step (torch.profiler) against the dry run's memory term
+    for B 4 and a cache of 192 on one card; then the dry run's argument
+    bytes against the memory the params and cache took, and its counted
+    FLOPs against FlopCounterMode on the real step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.models.model import Model
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = get_config(MG)
+    K, V, L = cfg.num_codebooks, cfg.vocab_size, MG_P + MG_NEW
+    model = Model(cfg, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = model.init(0)                                   # bf16
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - base
+    cache = model.init_cache(MG_B, L)
+    grown = torch.cuda.memory_allocated() - base
+    shape = ShapeConfig(f"decode_{L}", L, MG_B, "decode")
+    dry = dryrun.run_cfg(cfg, shape, dryrun.OneCard, profile="optimized")
+    prompt = torch.as_tensor(
+        np.random.default_rng(0).integers(0, V, (MG_B, K, MG_P)),
+        device=model.device)
+    steps_s = {}
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, prompt, cache_len=L)
+    torch.cuda.synchronize()
+    steps_s["prefill"] = time.perf_counter() - t0
+    nxt = logits[:, -1].argmax(-1)[..., None]                # (B, K, 1)
+    frames, checked = [], {}
+    pos = torch.full((MG_B, 1), MG_P, dtype=torch.int32, device=model.device)
+    t0 = time.perf_counter()
+    for t in range(MG_NEW):
+        frames.append(nxt)
+        logits, cache = model.decode_step(params, nxt, pos + t, cache)
+        if t in MG_CHECKED:
+            checked[t] = logits[:, 0]
+        nxt = logits[:, -1].argmax(-1)[..., None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    ids = torch.cat([prompt] + frames, dim=-1)               # (B, K, 192)
+    with FlopCounterMode(display=False) as fc:
+        model.decode_step(params, frames[0], pos, cache)
+    real_flops = fc.get_total_flops()
+    full = model.logits(params, ids)                         # (B, 192, K, V)
+    errs = {}
+    for t, got in checked.items():
+        want = full[:, MG_P + t]
+        errs[t] = {"rel_l2": float((got - want).norm() / want.norm()),
+                   "max_abs": float((got - want).abs().max()),
+                   "scale": float(want.abs().max()),
+                   "argmax_equal": float((got.argmax(-1) == want.argmax(-1))
+                                         .float().mean())}
+    ms_step = decode_s * 1e3 / MG_NEW
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in range(MG_PROFILED):      # rewrite the last slots in place
+            model.decode_step(params, frames[-1], pos + MG_NEW - 1 - t, cache)
+        torch.cuda.synchronize()
+    breakdown = kernel_breakdown(prof, MG_PROFILED, ms_step)
+    device_ms = breakdown.get("device_ms_per_round") or 0.0
+    mem_term_ms = dry["t_memory_s"] * 1e3
+    held = serve.count_params(params)
+    out = {"phase": "27a", "arch": cfg.name, "codebooks": K,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.head_dim_], "d_ff": cfg.d_ff,
+           "vocab": V, "param_count": cfg.param_count(), "params_held": held,
+           "batch": [MG_B, K, MG_P], "decode_steps": MG_NEW,
+           "prefill_s": steps_s["prefill"], "ms_per_step": ms_step,
+           "frames_per_s": MG_B * MG_NEW / decode_s,
+           "device_ms_per_step": device_ms,
+           "where_the_time_goes": breakdown,
+           "dryrun_memory_term_ms": mem_term_ms,
+           "device_over_memory_term": device_ms / mem_term_ms,
+           "dryrun_hbm_bytes": dry["hbm_bytes_per_chip"],
+           "checked_steps": errs, "tol_rel_l2": MG_TOL_REL,
+           "weights_gb": weights / 1e9,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "nvidia_smi": smi}
+    emit(out)
+    c = {"phase": "27c", "shape": shape.name,
+         "dryrun_argument_bytes": dry["argument_bytes_per_rank"],
+         "memory_allocated_growth": grown,
+         "argument_rel_diff": abs(dry["argument_bytes_per_rank"] - grown) / grown,
+         "dryrun_counted_flops": dry["counted_flops_total"],
+         "flop_counter_real": real_flops,
+         "dryrun_analytic_flops": dry["flops_per_chip"],
+         "dryrun_trace_s": dry["trace_s"]}
+    assert held == cfg.param_count(), (held, cfg.param_count())
+    assert all(torch.isfinite(x).all() for x in checked.values())
+    assert all(e["rel_l2"] <= MG_TOL_REL for e in errs.values()), errs
+    del params, cache, logits, full, checked, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return c
+
+
+def codebook_train_step(smi):
+    """27b: one CE and AdamW step of MusicGen-large at K 4 and published
+    width, cut to ``MG_TRAIN["layers"]`` layers, float32 master weights
+    and moments, remat, 1 x (4, 1024) tokens from seed 0: ms a step, peak
+    GB and the loss (near ln V at init)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.model import Model
+    from repro_torch.training import make_train_state, make_train_step
+    cfg = get_config(MG).replace(num_layers=MG_TRAIN["layers"])
+    B, S, K, V = MG_TRAIN["batch"], MG_TRAIN["seq"], cfg.num_codebooks, cfg.vocab_size
+    model = Model(cfg, "cuda")
+    tc = TrainConfig(warmup_steps=1, total_steps=10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model, 0, tc)
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, V, (B, K, S)),
+                           device=model.device)
+    labels = torch.full_like(toks, -1)
+    labels[..., :-1] = toks[..., 1:]
+    before = param_checksum(state["params"]["layers"][0])
+    step = make_train_step(model, tc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, toks, labels)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    loss = float(metrics["loss"])
+    moved = param_checksum(state["params"]["layers"][0]) != before
+    out = {"phase": "27b", "arch": cfg.name, "layers": cfg.num_layers,
+           "params": cfg.param_count(), "tokens": [B, K, S], "remat": cfg.remat,
+           "param_dtype": cfg.param_dtype, "ms_per_step": step_s * 1e3,
+           "loss": loss, "ln_vocab": math.log(V),
+           "grad_norm": float(metrics["grad_norm"]), "moved": moved,
+           "state_gb": state_gb,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "nvidia_smi": smi}
+    emit(out)
+    assert math.isfinite(loss) and abs(loss - math.log(V)) < 1.0, loss
+    assert moved, "the parameters did not move"
+    del state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase27_codebooks(smi):
+    """MusicGen-large with its four codebooks (after phase 26): (a)
+    prefill and greedy decode at published width (``codebook_decode``);
+    (b) a training step (``codebook_train_step``); (c) the dry-run CLI for
+    ``DRYRUN_CLI`` in subprocesses, and the dry run of (a)'s shape against
+    the real params, cache and step. No kernel runs on this path: the
+    launches of (a) and (b) must be 0."""
+    from repro_torch.kernels import ops
+    procs = start_dryrun_clis()
+    try:
+        ops.reset_launches()
+        c = codebook_decode(smi)
+        codebook_train_step(smi)
+        launches = dict(ops.LAUNCHES)
+    finally:
+        clis, ok = finish_dryrun_clis(procs)
+    emit({**c, "launches": launches, "cli": clis, "nvidia_smi": smi})
+    assert ok, ("the dry-run CLI failed", clis)
+    assert c["argument_rel_diff"] <= MG_ARG_TOL, c
+    assert c["dryrun_counted_flops"] == c["flop_counter_real"], c
+    assert not any(launches.values()), launches
+
+
 PHASE_SECONDS = {}
 
 
@@ -4537,6 +4782,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     rec_launches = timed(26, phase26_recurrent, smi)
+    torch.cuda.empty_cache()
+    timed(27, phase27_codebooks, smi)
     torch.cuda.empty_cache()
     timed(5, phase5_greedy_exactness)
     torch.cuda.empty_cache()

@@ -2,15 +2,15 @@
 paper's own Llama 2-Chat target/drafter pair), selectable via
 ``--arch <id>`` (``repro.configs``).
 
-Every config is registered; ``models.transformer.check_config`` refuses
-at construction those whose layer kinds or features are not ported yet,
-naming the ROADMAP item that ports them."""
+Every config is registered and every one constructs; ``INPUT_SHAPES``
+holds the dry run's four assigned shapes (``launch.dryrun``)."""
 from __future__ import annotations
 
 from typing import Dict
 
-from .base import (ATTN, LOCAL_ATTN, MAMBA, MLSTM, SHARED_ATTN,  # noqa: F401
-                   SLSTM, ModelConfig, QuantConfig, TrainConfig)
+from .base import (ATTN, INPUT_SHAPES, LOCAL_ATTN, MAMBA,  # noqa: F401
+                   MLSTM, SHARED_ATTN, SLSTM, ModelConfig, QuantConfig,
+                   ShapeConfig, TrainConfig)
 from . import (phi4_mini_3p8b, gemma2_9b, zamba2_7b, granite_moe_3b,
                minitron_4b, chameleon_34b, grok_1_314b, yi_9b, xlstm_1p3b,
                musicgen_large, llama2_7b_chat)

@@ -1,11 +1,10 @@
 """Model and training configuration of the port (``repro.configs.base``).
 
 ``ModelConfig`` is a copy of the reference's, field for field, covering the
-dense, MoE, SSM, hybrid, VLM and audio architectures of the registry. The
-port's decoder runs the dense attention stack, with qk-norm and softcaps;
-``models.transformer.check_config`` refuses a config that needs a layer
-kind or feature not ported yet. ``TrainConfig`` and ``QuantConfig`` are
-copies of the reference's.
+dense, MoE, SSM, hybrid, VLM and audio architectures of the registry;
+``models.transformer.check_config`` refuses a layer kind the port does not
+know. ``ShapeConfig`` with the assigned ``INPUT_SHAPES`` of the dry run,
+``TrainConfig`` and ``QuantConfig`` are copies of the reference's.
 """
 from __future__ import annotations
 
@@ -154,6 +153,24 @@ class ModelConfig:
         if self.shared_attn_period:
             total += self.num_shared_attn_sets * (qkv + 2 * d + ffn + d)
         return total
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape (see system brief)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str   # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -26,9 +26,11 @@ head checkpoint (``checkpoint.save_draft_heads``) that ``launch.serve
 
 ``--arch`` takes every key of ``configs.ARCHS``; an MoE target's loss adds
 its router aux (``loss_ce``), and the recurrent archs (``zamba2-7b``,
-``xlstm-1.3b``) train through their chunked scans. An arch whose
-features the port does not run yet (MusicGen's four codebooks) exits with
-the model's refusal, which names the ROADMAP item that ports it.
+``xlstm-1.3b``) train through their chunked scans. ``musicgen-large``
+pretrains with its four codebooks on the stream replicated per codebook,
+as the reference does; its ``--phase distill`` exits with the refusal of
+``training.finetune.check_distillable`` (ROADMAP §3 item 11) and its
+``--draft-head`` with the reference's message, before anything is built.
 
 The synthetic corpus holds six V x V float64 transition matrices, so a
 full-width vocabulary (Llama-2's 32000: 49 GB) is refused; ``--reduced``
@@ -52,6 +54,7 @@ from ..draftheads import (HeadConfig, HeadDrafter, finetune_heads,
 from ..models.model import Model
 from ..models.transformer import check_config
 from ..training import finetune, make_train_state, train
+from ..training.finetune import check_distillable
 
 # host memory the corpus's transition matrices may take
 CORPUS_MAX_BYTES = 2 << 30
@@ -90,8 +93,12 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    try:        # a config the port cannot run yet exits with its reason
+    if cfg.num_codebooks > 1 and args.draft_head is not None:
+        raise SystemExit("--draft-head supports single-codebook targets")
+    try:        # a config the port cannot run exits with its reason
         check_config(cfg)
+        if args.phase == "distill":
+            check_distillable(cfg)
     except ValueError as e:
         raise SystemExit(str(e))
     if corpus_bytes(cfg.vocab_size) > CORPUS_MAX_BYTES:
@@ -106,6 +113,8 @@ def main(argv=None):
 
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seed=args.seed)
     chunks = pack_documents(corpus.pretrain_docs(600, args.seq * 2), args.seq)
+    if cfg.num_codebooks > 1:   # audio: the stream replicated per codebook
+        chunks = np.repeat(chunks[:, None, :], cfg.num_codebooks, axis=1)
     t0 = time.time()
     if args.draft_head is not None:
         train_heads(args, model, chunks, tc, t0)

@@ -51,7 +51,10 @@ def matmul_param(x, w):
 
 def trunc_normal(gen, shape, scale, dtype, device):
     """``scale`` times a standard normal truncated to [-3, 3], drawn in
-    float32 from ``gen`` and cast to ``dtype``."""
+    float32 from ``gen`` and cast to ``dtype``. On the meta device nothing
+    is drawn (``gen`` may be None): the leaf has its shape and dtype only."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
     return (w * scale).to(dtype)
@@ -103,10 +106,20 @@ def swiglu(params, x):
 
 
 def embed_tokens(table, tokens):
-    """tokens: (B, S) int -> (B, S, D) rows of ``table``."""
-    return table[tokens]
+    """tokens (B, S) int -> (B, S, D) rows of a (V, D) ``table``; or, for a
+    multi-codebook model, (B, K, S) ids -> the sum over k of the rows of
+    codebook k's table in a (K, V, D) ``table``, summed in float32."""
+    if table.dim() == 2:
+        return table[tokens]
+    book = torch.arange(table.shape[0], device=tokens.device)[None, :, None]
+    return table[book, tokens].sum(1, dtype=torch.float32)
 
 
 def lm_head_logits(w, x, cap: Optional[float] = None):
-    """Final projection; logits are float32."""
-    return softcap(matmul_param(x, w).float(), cap)
+    """Final projection; logits are float32. A (K, D, V) head gives one
+    (..., K, V) set of logits per codebook."""
+    if hasattr(w, "bits") or w.dim() == 2:
+        logits = matmul_param(x, w)
+    else:
+        logits = torch.einsum("...d,kdv->...kv", x, w.to(x.dtype))
+    return softcap(logits.float(), cap)

@@ -54,29 +54,34 @@ def resolve_device(device) -> torch.device:
 
 
 def chunked_ce_from_hidden(params, hidden, labels, cfg):
-    """hidden (B, S, D), labels (B, S) int (-1 = masked) -> (sum of the
-    token NLLs, count of labelled tokens). Single-codebook labels only."""
-    if labels.dim() != 2:
-        raise ValueError("only single-codebook (B, S) labels are ported, got "
-                         f"{tuple(labels.shape)}")
+    """hidden (B, S, D), labels (B, S) or, multi-codebook, (B, K, S) int
+    (-1 = masked) -> (sum of the token NLLs, count of labelled tokens). A
+    chunk's (B, K, C) labels are moved to (B, C, K), against its (B, C, K,
+    V) logits."""
     B, S, _ = hidden.shape
     C = LOSS_CHUNK if S % LOSS_CHUNK == 0 and S > LOSS_CHUNK else S
+    multi = labels.dim() == 3
 
     def chunk(h, lab):
         logits = tfm.logits_from_hidden(params, h, cfg)          # fp32
-        return F.cross_entropy(logits.flatten(0, 1), lab.flatten().long(),
+        if multi:
+            lab = lab.transpose(1, 2)
+        return F.cross_entropy(logits.flatten(0, -2), lab.flatten().long(),
                                ignore_index=-1, reduction="sum")
 
-    sums = [checkpoint(chunk, hidden[:, i:i + C], labels[:, i:i + C],
+    sums = [checkpoint(chunk, hidden[:, i:i + C], labels[..., i:i + C],
                        use_reentrant=False) for i in range(0, S, C)]
     return torch.stack(sums).sum(), (labels >= 0).sum()
 
 
 class Model:
-    """Entry points run on the card unless ``device="cpu"`` is passed. A
-    config the port cannot run yet is refused by ``init``, ``init_cache``
-    and ``init_paged_cache``, with the ``ValueError`` of
-    ``transformer.check_config``."""
+    """Entry points run on the card unless ``device="cpu"`` is passed; on
+    ``device="meta"`` ``init`` and the caches have shapes and dtypes only
+    (``launch.dryrun``). A layer kind the port does not know is refused by
+    ``init``, ``init_cache`` and ``init_paged_cache``, with the
+    ``ValueError`` of ``transformer.check_config``. A multi-codebook model
+    takes (B, K, S) ids everywhere a single-codebook one takes (B, S), and
+    its logits carry a K axis before V."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         self.cfg = cfg
@@ -84,8 +89,10 @@ class Model:
 
     def init(self, seed: int, dtype=None):
         """Seeded random parameters (``transformer.init_params``); matmul
-        weights in ``dtype``, by default the compute dtype."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        weights in ``dtype``, by default the compute dtype. On the meta
+        device nothing is drawn and no generator is built."""
+        gen = (None if self.device.type == "meta" else
+               torch.Generator(device=self.device).manual_seed(seed))
         return tfm.init_params(gen, self.cfg, self.device, dtype)
 
     def init_cache(self, batch: int, max_len: int, long_context: bool = False,
@@ -134,11 +141,12 @@ class Model:
     def prefill(self, params, tokens, cache_len: int,
                 long_context: bool = False, positions=None,
                 return_hidden: bool = False):
-        """tokens (B, S) -> (logits of the last position (B, 1, V) fp32,
-        caches of ``cache_len`` slots), plus the (B, S, D) final hidden
-        states with ``return_hidden`` (draft heads seed their feature from
-        the last prompt position). ``long_context`` windows the global
-        layers at ``cfg.long_context_window``."""
+        """tokens (B, S) or (B, K, S) -> (logits of the last position
+        (B, 1, V) or (B, 1, K, V) fp32, caches of ``cache_len`` slots),
+        plus the (B, S, D) final hidden states with ``return_hidden``
+        (draft heads seed their feature from the last prompt position).
+        ``long_context`` windows the global layers at
+        ``cfg.long_context_window``."""
         h, cache = tfm.backbone(params, tokens, self.cfg, mode="prefill",
                                 positions=positions, cache_len=cache_len,
                                 long_context=long_context)
@@ -148,12 +156,13 @@ class Model:
     def decode_step(self, params, tokens, positions, cache,
                     long_context: bool = False, slots=None, attn_mask=None,
                     page_table=None, return_hidden: bool = False):
-        """tokens (B, T) new ids, positions (B, T) absolute -> (logits
-        (B, T, V) fp32, cache), plus the (B, T, D) final hidden states the
-        logits came from with ``return_hidden`` (the verify pass hands them
-        to draft heads). ``slots``/``attn_mask`` serve tree speculation:
-        storage slots for nodes that share a RoPE position, and an ancestor
-        mask replacing positional causality. With ``page_table`` (B,
+        """tokens (B, T) new ids (or (B, K, T): K ids a step), positions
+        (B, T) absolute -> (logits (B, T, V) or (B, T, K, V) fp32, cache),
+        plus the (B, T, D) final hidden states the logits came from with
+        ``return_hidden`` (the verify pass hands them to draft heads).
+        ``slots``/``attn_mask`` serve tree speculation: storage slots for
+        nodes that share a RoPE position, and an ancestor mask replacing
+        positional causality. With ``page_table`` (B,
         max_pages) the attention layers read and write the shared paged
         pool (``init_paged_cache``) instead of per-row caches.
         ``long_context`` windows the global layers as in ``prefill``."""

@@ -26,11 +26,15 @@ group that its forward never reads; the port allocates none of them
 Caches, one dict per layer: attention {"k", "v", "pos"} (and int8
 scales), Mamba {"state", "conv"}, mLSTM {"state"}, sLSTM {"c", "n", "h",
 "m"}. Attention decode writes into its cache in place; a recurrent
-layer's decode returns a new dict of new tensors. ``check_config`` refuses
-only more than one codebook, naming the ROADMAP item (queue 1) that ports
-it.
+layer's decode returns a new dict of new tensors.
+
+A multi-codebook model (``num_codebooks`` K > 1, MusicGen) takes (B, K, S)
+ids, sums the K embeddings of a position (a (K, V, d) table), and gives
+(..., K, V) logits from a (K, d, V) head.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -44,27 +48,18 @@ from .layers import (dense_param, embed_tokens, lm_head_logits, rms_norm,
 from .moe import init_moe, moe_ffn
 
 
-# the ROADMAP.md queue 1 item that ports what the decoder refuses
-_CODEBOOKS = ("ROADMAP §1 item 3 (multi-codebook embeddings, heads and loss, "
-              "musicgen-large with K 4)")
 _ATTN_KINDS = (ATTN, LOCAL_ATTN, SHARED_ATTN)
 _KINDS = _ATTN_KINDS + (MAMBA, MLSTM, SLSTM)
 
 
 def check_config(cfg):
-    """Raise ``ValueError`` naming the ROADMAP item of a feature of ``cfg``
-    that the port does not run yet: more than one codebook (or a layer
-    kind it does not know)."""
+    """Raise ``ValueError`` for a layer kind of ``cfg`` that the port does
+    not know."""
     g, _, rem = cfg.pattern_blocks()
-    refused = [(f"the '{kind}' layer kind", "no item")
-               for kind in tuple(g) + tuple(rem) if kind not in _KINDS]
-    if cfg.num_codebooks > 1:
-        refused.append((f"multi-codebook input ({cfg.num_codebooks} "
-                        "codebooks)", _CODEBOOKS))
-    if refused:
-        what, item = refused[0]
-        raise ValueError(f"{cfg.name}: {what} is not ported yet; it waits "
-                         f"for {item}")
+    for kind in tuple(g) + tuple(rem):
+        if kind not in _KINDS:
+            raise ValueError(f"{cfg.name}: the '{kind}' layer kind is not "
+                             "ported")
 
 
 def _has_ffn(cfg, kind):
@@ -116,7 +111,10 @@ def init_params(gen, cfg, device, dtype=None):
     serving; training passes ``cfg.param_dtype``), norm weights in float32
     (zeros), an MoE router and the recurrent blocks' gates, convs and
     biases in float32. Shared attention sets go to
-    ``params["shared_attn"]``; their layers' own dicts are empty."""
+    ``params["shared_attn"]``; their layers' own dicts are empty. A
+    multi-codebook config gets a (K, V, d) embedding and a (K, d, V) head.
+    On the meta device every leaf has its shape and dtype and nothing is
+    drawn (``gen`` may be None)."""
     check_config(cfg)
     wdt = dtype or cfg.compute_dtype
     d, hd, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
@@ -136,9 +134,12 @@ def init_params(gen, cfg, device, dtype=None):
             p["q_norm"], p["k_norm"] = norm(hd), norm(hd)
         return p
 
-    params = {"embed": trunc_normal(gen, (cfg.vocab_size, d), 1.0, wdt, device)}
+    K, V = cfg.num_codebooks, cfg.vocab_size
+    book = (K,) if K > 1 else ()
+    params = {"embed": trunc_normal(gen, book + (V, d), 1.0, wdt, device)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_param(gen, d, cfg.vocab_size, wdt, device)
+        params["lm_head"] = trunc_normal(gen, book + (d, V), 1.0 / math.sqrt(d),
+                                         wdt, device)
     params["final_norm"] = norm()
 
     def block(kind):
@@ -307,13 +308,14 @@ def apply_block(lp, kind, x, cfg, mode, positions, cache=None, window=None,
 def backbone(params, tokens, cfg, mode, positions=None, cache=None,
              long_context=False, cache_len=0, slots=None, attn_mask=None,
              page_table=None, with_aux=False):
-    """tokens: (B, S) int. ``mode`` is "train" (no caches), "prefill"
-    (builds caches of ``cache_len`` slots in every attention layer, and a
-    recurrent layer's state after the prompt from a zero state, as the
-    reference does) or "decode" (writes into ``cache``; with
-    ``page_table`` (B, max_pages) the cache is the shared paged pool of
-    ``init_paged_cache``). Every mode attends within each layer's
-    ``_block_window``; ``long_context`` windows the global layers too.
+    """tokens: (B, S) int, or (B, K, S) for a multi-codebook model.
+    ``mode`` is "train" (no caches), "prefill" (builds caches of
+    ``cache_len`` slots in every attention layer, and a recurrent layer's
+    state after the prompt from a zero state, as the reference does) or
+    "decode" (writes into ``cache``; with ``page_table`` (B, max_pages)
+    the cache is the shared paged pool of ``init_paged_cache``). Every
+    mode attends within each layer's ``_block_window``; ``long_context``
+    windows the global layers too.
     With ``cfg.scale_embed`` the embeddings are multiplied by
     sqrt(d_model) in the compute dtype. Returns (hidden (B, S, D) after
     the final norm, caches); in training the second item is, with
@@ -330,7 +332,7 @@ def backbone(params, tokens, cfg, mode, positions=None, cache=None,
     x = embed_tokens(params["embed"], tokens).to(cfg.compute_dtype)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-    B, S = tokens.shape
+    B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
@@ -361,5 +363,6 @@ def backbone(params, tokens, cfg, mode, positions=None, cache=None,
 
 
 def logits_from_hidden(params, hidden, cfg):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
+         else params["lm_head"])
     return lm_head_logits(w, hidden, cfg.final_softcap)

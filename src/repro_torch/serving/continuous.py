@@ -195,6 +195,8 @@ class ContinuousEngine:
             models.append((self.draft, "draft"))
         for m, name in models:
             check_pageable(m.cfg, name)
+            if m.cfg.num_codebooks > 1:
+                raise ValueError("multi-codebook decode is not supported")
         if self.draft_heads is not None:
             if self.tree is not None:
                 self.draft_heads.validate_tree(self.tree.depth)

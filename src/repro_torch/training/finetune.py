@@ -34,6 +34,18 @@ from .pretrain import log_metrics, value_and_grad
 CHUNKED_VOCAB_THRESHOLD = 8192
 
 
+def check_distillable(*cfgs) -> None:
+    """Refuse a multi-codebook drafter or target: the reference's
+    distillation fails at K > 1 (its (B, S) mask against (B, S, K, V)
+    logits), and the port invents none (ROADMAP §3 item 11)."""
+    for cfg in cfgs:
+        if cfg.num_codebooks > 1:
+            raise ValueError(
+                f"{cfg.name}: distillation of a multi-codebook model "
+                f"({cfg.num_codebooks} codebooks) is not supported: the "
+                "reference's fails there (ROADMAP §3 item 11)")
+
+
 def distill_loss_and_grads(draft: Model, target: Model, params, t_params,
                            tokens, mask, loss_kind: str = "tvdpp",
                            use_kernels: bool = False):
@@ -94,14 +106,14 @@ def finetune(draft: Model, target: Model, state, t_params,
              batches: Iterator[np.ndarray], tc: TrainConfig, steps: int,
              loss_kind: str = "tvdpp", log_every: int = 0, callback=None,
              use_kernels: bool = False):
-    """Host loop over (B, S) token batches, every position counted."""
+    """Host loop over (B, S) token batches, every position counted. A
+    multi-codebook drafter or target is refused (``check_distillable``)."""
+    check_distillable(draft.cfg, target.cfg)
     step_fn = make_distill_step(draft, target, tc, loss_kind, use_kernels)
     history = []
     for i in range(steps):
         chunk = torch.as_tensor(next(batches), dtype=torch.long,
                                 device=draft.device)
-        if chunk.dim() != 2:
-            raise ValueError("only single-codebook (B, S) batches are ported")
         mask = torch.ones(chunk.shape, dtype=torch.float32, device=draft.device)
         state, metrics = step_fn(state, t_params, chunk, mask)
         log_metrics(history, i, metrics, log_every, callback)
