@@ -238,7 +238,7 @@ Phases, each printing one JSON line and then one line of its seconds:
      N 64, chunk 128, and 11 applications of 2 shared attention+MLP sets,
      32 heads at hd 112, d_ff 14336; V 32000) with its drafter (7 blocks
      of (mamba, mamba, shared_attn), d 1024) in bf16 from seeds 0/1, chain
-     gamma 3 and AR over 4 x (128 + 64) at temperature 0.7 (a recurrent
+     gamma 3 and AR over 4 x (128 + 32) at temperature 0.7 (a recurrent
      model is fed one token a call and rewound by snapshots; no kernel is
      launched): tau, MBSU with c from param_count beside the init's
      count, tok/s, host and device ms a round, the device shares of the
@@ -273,8 +273,23 @@ Phases, each printing one JSON line and then one line of its seconds:
      initialised), and the dry run of (a)'s shape: its argument bytes
      within 1% of the memory the real params and cache took, its counted
      FLOPs equal to FlopCounterMode on the real decode step; no kernel
-     launched in (a) or (b).
-Phases 23-27 run after phase 22; phases 10, 11, 13-15, 18 and 21 run before
+     launched in (a) or (b). The CLIs start before phase 27, run beside
+     phases 27, 28, 5, 17, 20, 6 and 7 on the host's cores, and are read
+     after phase 7;
+ 28. the sharded step (after phase 27) on a world of one over NCCL, a (1,
+     1) mesh named data, model (NCCL refuses two ranks on one card): (a)
+     granite's MoE layer at published width in bf16 at cf 1.25 and E/k
+     through its mesh paths (baseline and optimized at 28 and 512 tokens,
+     the weight-stationary path at 28 and 4) against the path without a
+     mesh, within 1e-2 of its scale, with the collective bytes by kind,
+     the NCCL kernels the profiler sees, and ms with and without the mesh;
+     (b) phase 25d's set-up served greedily by tree with the mesh
+     installed, in both profiles: tokens equal to those without it, 2 + 4
+     x 3 tree_attention launches a round; (c) after phase 7, the dry-run
+     CLIs' collective term and one rank's peak, and the one-card sharded
+     trace of (27a)'s decode step: its peak within 1% of the growth of
+     max_memory_allocated over the real step from before its params.
+Phases 23-28 run after phase 22; phases 10, 11, 13-15, 18 and 21 run before
 phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
@@ -2371,22 +2386,54 @@ def phase13_pipeline(smi):
 STEP_LOSS = re.compile(r"^step (\d+): .*'loss': ([^,}]+)", re.M)
 
 
+def run_side_by_side(cmds, timeout=600):
+    """Each of {name: command} in a subprocess, all at once (the card holds
+    their models together and the host has cores for each): {name:
+    (``CompletedProcess``, seconds to its exit)}; one past ``timeout``
+    seconds is killed."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    running, done = {}, {}
+    for name, cmd in cmds.items():
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        running[name] = (cmd, subprocess.Popen(
+            cmd, stdout=out, stderr=err, text=True, cwd=ROOT, env=env),
+            out, err, time.perf_counter())
+    while running:
+        for name in list(running):
+            cmd, proc, out, err, t0 = running[name]
+            if proc.poll() is None and time.perf_counter() - t0 < timeout:
+                continue
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.seek(0)
+            err.seek(0)
+            done[name] = (subprocess.CompletedProcess(
+                cmd, proc.returncode, out.read(), err.read()),
+                time.perf_counter() - t0)
+            out.close()
+            err.close()
+            del running[name]
+        time.sleep(0.2)
+    return done
+
+
 def phase14_train_cli(smi):
     """The training CLI in subprocesses: --phase pretrain (the loss must
     fall below its first logged value) and --phase distill --loss tvdpp
-    (the TVD++ surrogate is 0 up to rounding: finite), 10 steps each."""
+    (the TVD++ surrogate is 0 up to rounding: finite), 10 steps each, side
+    by side."""
     runs = {}
-    for name, extra in (("pretrain", ["--phase", "pretrain", "--save",
-                                      str(ROOT / "build" / "train_cli.npz")]),
-                        ("distill", ["--phase", "distill", "--loss", "tvdpp"])):
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               "llama2-7b-chat", "--reduced", "--steps", "10", *extra]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                              cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    cmds = {name: [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                   "llama2-7b-chat", "--reduced", "--steps", "10", *extra]
+            for name, extra in (
+                ("pretrain", ["--phase", "pretrain", "--save",
+                              str(ROOT / "build" / "train_cli.npz")]),
+                ("distill", ["--phase", "distill", "--loss", "tvdpp"]))}
+    for name, (proc, s) in run_side_by_side(cmds).items():
         losses = [float(x) for _, x in STEP_LOSS.findall(proc.stdout)]
-        runs[name] = {"cmd": " ".join(cmd[1:]), "rc": proc.returncode,
-                      "s": time.perf_counter() - t0, "loss": losses,
+        runs[name] = {"cmd": " ".join(proc.args[1:]), "rc": proc.returncode,
+                      "s": s, "loss": losses,
                       "tail": proc.stdout.strip().splitlines()[-2:],
                       "stderr": proc.stderr.strip().splitlines()[-3:]}
     emit({"phase": 14, "runs": runs, "nvidia_smi": smi})
@@ -2770,24 +2817,22 @@ def phase18_continuous_cli(smi):
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
-        for name, extra, used in (
-                ("tree_int8", ["--tree", "--prefix-cache", "--quant-weights",
-                               "int8", "--quant-target", "--quant-kv",
-                               *obs_cli_flags(d)],
-                 {"tree_attention", "quant_matmul_int8"}),
-                ("chain_bf16", [], set())):
-            t0 = time.perf_counter()
-            proc = subprocess.run(base + extra, capture_output=True, text=True,
-                                  timeout=600, cwd=ROOT,
-                                  env={**os.environ,
-                                       "PYTHONPATH": str(ROOT / "src")})
+        variants = (("tree_int8", ["--tree", "--prefix-cache", "--quant-weights",
+                                   "int8", "--quant-target", "--quant-kv",
+                                   *obs_cli_flags(d)],
+                     {"tree_attention", "quant_matmul_int8"}),
+                    ("chain_bf16", [], set()))
+        done = run_side_by_side({name: base + extra
+                                 for name, extra, _ in variants})
+        for name, extra, used in variants:
+            proc, s = done[name]
             found = LAUNCH_LINE.search(proc.stdout)
             served, rounds = CONT_LINE.search(proc.stdout), ROUNDS_FIELD.search(
                 proc.stdout)
             queued = MAX_QUEUE_FIELD.search(proc.stdout)
             run = runs[name] = {
                 "cmd": " ".join(base[1:] + extra), "rc": proc.returncode,
-                "s": time.perf_counter() - t0,
+                "s": s,
                 "launches": json.loads(found[1]) if found else None,
                 "requests": int(served[1]) if served else None,
                 "rounds": int(rounds[1]) if rounds else None,
@@ -3131,16 +3176,18 @@ def head_clis():
                    str(SHORT_BATCH), "--temperature", "0.7"], 32),
     }
     out = {}
+    # the continuous run reads no checkpoint: it runs beside the training
+    done = run_side_by_side({n: runs[n][0] for n in ("train",
+                                                     "serve_continuous_tree")})
     for name, (cmd, layers) in runs.items():
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                              cwd=ROOT,
-                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        if name not in done:
+            done.update(run_side_by_side({name: cmd}))
+        proc, s = done[name]
         found = LAUNCH_LINE.search(proc.stdout)
         rounds = ROUNDS_FIELD.search(proc.stdout)
         run = out[name] = {
             "cmd": " ".join(cmd[2:]), "rc": proc.returncode,
-            "s": time.perf_counter() - t0,
+            "s": s,
             "launches": json.loads(found[1]) if found else None,
             "rounds": int(rounds[1]) if rounds else None,
             "loss": [float(x) for _, x in STEP_LOSS.findall(proc.stdout)],
@@ -3388,20 +3435,20 @@ def arch_clis(runs=ARCH_CLI_RUNS, phase="23e"):
     no other kernel."""
     from repro_torch.configs import get_config
     out = {}
+    done = run_side_by_side({
+        arch: [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               arch, "--tree", "--temperature", "0.7", "--requests", "4"]
+        for arch, _ in runs})
     for arch, note in runs:
         cfg = get_config(arch)
         per_round = cfg.num_layers + cfg.drafter().num_layers * 3
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
-               "--tree", "--temperature", "0.7", "--requests", "4"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                              cwd=ROOT,
-                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        proc, s = done[arch]
+        cmd = proc.args
         found = LAUNCH_LINE.search(proc.stdout)
         rounds = ROUNDS_FIELD.search(proc.stdout)
         run = out[arch] = {
             "cmd": " ".join(cmd[2:]), "rc": proc.returncode,
-            "s": time.perf_counter() - t0,
+            "s": s,
             "launches": json.loads(found[1]) if found else None,
             "rounds": int(rounds[1]) if rounds else None,
             "launches_per_round": per_round, "note_printed": NOTE in proc.stdout,
@@ -4076,7 +4123,7 @@ def phase25_moe(smi):
 # ------------------------------------------------ recurrent layers (26)
 
 ZAMBA, XLSTM = "zamba2-7b", "xlstm-1.3b"
-REC_B, REC_P, REC_NEW = 4, 128, 64          # 26a, 26b: 4 x (128 + 64)
+REC_B, REC_P, REC_NEW = 4, 128, 32          # 26a, 26b: 4 x (128 + 32)
 ZAMBA_QUANT_SHAPES = {   # (label, K, N) of every quantized matmul of 26d
     "target": [("wq/wk/wv/wo", 3584, 3584), ("w_gate/w_up", 3584, 14336),
                ("w_down", 14336, 3584), ("lm_head", 3584, 32000)],
@@ -4513,14 +4560,67 @@ MG_ARG_TOL = 1e-2                     # 27c: argument bytes against the card
 DRYRUN_CLI = ((MG, "decode_32k"), ("yi-9b", "train_4k"))
 
 
-def start_dryrun_clis():
+def start_cli_procs():
     """27c: the dry-run CLI for each of ``DRYRUN_CLI`` in a subprocess of
-    its own (no card: they run beside 27a and 27b on the host's cores)."""
+    its own."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     return {f"{arch} x {shape}": subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
          "--shape", shape], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, cwd=ROOT, env=env) for arch, shape in DRYRUN_CLI}
+
+
+# 28c: the dry run's sharded trace of 27a's decode step on a (1, 1) mesh over
+# the fake backend, in a process of its own (one default group a process:
+# phase 28's NCCL group is this one's)
+ONE_CARD_TRACE = """
+import json, sys
+sys.path.insert(0, "src")
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+B, L = int(sys.argv[1]), int(sys.argv[2])
+dist.init_process_group("fake", rank=0, world_size=1, store=FakeStore())
+r = dryrun.run_cfg(get_config("musicgen-large"),
+                   ShapeConfig(f"decode_{L}", L, B, "decode"),
+                   make_mesh((1, 1), ("data", "model")), profile="optimized")
+print(json.dumps({k: r[k] for k in ("memory", "collectives",
+                 "collective_bytes_per_chip", "t_collective_s",
+                 "argument_bytes_per_rank", "sharded_trace_s")}))
+"""
+
+
+def start_dryrun_clis():
+    """27c's dry-run CLIs and 28c's one-card sharded trace, each in a
+    subprocess of its own (no card: they run on the host's cores beside
+    phases 27, 28, 5, 17, 20, 6 and 7, which assert no host timing)."""
+    procs = start_cli_procs()
+    procs["one_card_trace"] = subprocess.Popen(
+        [sys.executable, "-c", ONE_CARD_TRACE, str(MG_B), str(MG_P + MG_NEW)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    # a phase that fails before 27 collects them must not leave them running
+    atexit.register(lambda: [p.kill() for p in list(procs.values())
+                             if p.poll() is None])
+    return procs
+
+
+def finish_one_card_trace(proc, timeout=300):
+    """28c's trace result (None, with its error printed, if it failed)."""
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+    lines = stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        emit({"phase": "28c", "one_card_trace_rc": proc.returncode,
+              "stderr": stderr[-1500:]})
+        return None
+    return json.loads(lines[-1])
 
 
 def finish_dryrun_clis(procs, timeout=300):
@@ -4535,15 +4635,19 @@ def finish_dryrun_clis(procs, timeout=300):
             stdout, stderr = proc.communicate()
         lines = stdout.strip().splitlines()
         rec = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+        # 28c: the sharded trace's collective term and one rank's memory
         good = proc.returncode == 0 and rec.get("ok") and \
-            rec.get("cuda_initialized") is False
+            rec.get("cuda_initialized") is False and \
+            rec.get("t_collective_s") is not None and \
+            (rec.get("memory") or {}).get("peak_bytes", 0) > 0
         ok &= bool(good)
         out[name] = {"rc": proc.returncode, **{k: rec.get(k) for k in (
             "chips", "flops_per_chip", "counted_flops_per_chip",
             "counted_over_analytic", "hbm_bytes_per_chip", "t_compute_s",
-            "t_memory_s", "bottleneck", "useful_flops_ratio",
+            "t_memory_s", "t_collective_s", "collective_bytes_per_chip",
+            "collectives", "memory", "bottleneck", "useful_flops_ratio",
             "argument_bytes_per_rank", "fits_one_card", "trace_s",
-            "host_peak_rss_gb", "cuda_initialized")}}
+            "sharded_trace_s", "host_peak_rss_gb", "cuda_initialized")}}
         if not good:
             out[name]["stderr"] = stderr[-1500:]
     return out, ok
@@ -4597,6 +4701,14 @@ def codebook_decode(smi):
         nxt = logits[:, -1].argmax(-1)[..., None]
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    # 28c: the memory of one more step (the last slot rewritten in place)
+    torch.cuda.reset_peak_memory_stats()
+    before_step = torch.cuda.memory_allocated()
+    model.decode_step(params, frames[-1], pos + MG_NEW - 1, cache)
+    torch.cuda.synchronize()
+    step_mem = {"before_step_over_base": before_step - base,
+                "peak_over_base": torch.cuda.max_memory_allocated() - base,
+                "step_growth": torch.cuda.max_memory_allocated() - before_step}
     ids = torch.cat([prompt] + frames, dim=-1)               # (B, K, 192)
     with FlopCounterMode(display=False) as fc:
         model.decode_step(params, frames[0], pos, cache)
@@ -4644,7 +4756,7 @@ def codebook_decode(smi):
          "dryrun_counted_flops": dry["counted_flops_total"],
          "flop_counter_real": real_flops,
          "dryrun_analytic_flops": dry["flops_per_chip"],
-         "dryrun_trace_s": dry["trace_s"]}
+         "dryrun_trace_s": dry["trace_s"], "real_step_memory": step_mem}
     assert held == cfg.param_count(), (held, cfg.param_count())
     assert all(torch.isfinite(x).all() for x in checked.values())
     assert all(e["rel_l2"] <= MG_TOL_REL for e in errs.values()), errs
@@ -4704,24 +4816,230 @@ def codebook_train_step(smi):
 def phase27_codebooks(smi):
     """MusicGen-large with its four codebooks (after phase 26): (a)
     prefill and greedy decode at published width (``codebook_decode``);
-    (b) a training step (``codebook_train_step``); (c) the dry-run CLI for
-    ``DRYRUN_CLI`` in subprocesses, and the dry run of (a)'s shape against
-    the real params, cache and step. No kernel runs on this path: the
-    launches of (a) and (b) must be 0."""
+    (b) a training step (``codebook_train_step``); (c) the dry run of (a)'s
+    shape against the real params, cache and step (the dry-run CLIs of
+    27c run beside, ``finish_dry_runs``). No kernel runs on this path: the
+    launches of (a) and (b) must be 0. Returns (c)'s numbers, the real
+    step's memory among them for 28c."""
     from repro_torch.kernels import ops
-    procs = start_dryrun_clis()
-    try:
-        ops.reset_launches()
-        c = codebook_decode(smi)
-        codebook_train_step(smi)
-        launches = dict(ops.LAUNCHES)
-    finally:
-        clis, ok = finish_dryrun_clis(procs)
-    emit({**c, "launches": launches, "cli": clis, "nvidia_smi": smi})
-    assert ok, ("the dry-run CLI failed", clis)
+    ops.reset_launches()
+    c = codebook_decode(smi)
+    codebook_train_step(smi)
+    launches = dict(ops.LAUNCHES)
+    emit({**c, "launches": launches, "nvidia_smi": smi})
     assert c["argument_rel_diff"] <= MG_ARG_TOL, c
     assert c["dryrun_counted_flops"] == c["flop_counter_real"], c
     assert not any(launches.values()), launches
+    return c
+
+
+def finish_dry_runs(procs, c27, smi):
+    """27c's dry-run CLIs (exit 0, CUDA untouched, the collective term and
+    a rank's peak printed) and 28c: the one-card sharded trace of 27a's
+    decode step held against the growth of max_memory_allocated over the
+    real step from before its params."""
+    try:
+        traced = finish_one_card_trace(procs.pop("one_card_trace"))
+    finally:
+        clis, ok = finish_dryrun_clis(procs)
+    emit({"phase": "27c", "cli": clis, "nvidia_smi": smi})
+    assert ok, ("the dry-run CLI failed", clis)
+    real = c27["real_step_memory"]
+    c = {"phase": "28c", "one_card_trace": traced, "real_step_memory": real,
+         "tol_rel": MG_PEAK_TOL}
+    if traced:
+        mem = traced["memory"]
+        c["trace_peak_over_real"] = mem["peak_bytes"] / real["peak_over_base"]
+        c["trace_step_over_arguments"] = mem["peak_bytes"] - \
+            mem["argument_bytes"]
+    emit({**c, "nvidia_smi": smi})
+    assert traced is not None, "the one-card sharded trace failed"
+    assert abs(c["trace_peak_over_real"] - 1) <= MG_PEAK_TOL, c
+    assert traced["collectives"] is not None and \
+        traced["t_collective_s"] is not None, traced
+
+
+# ------------------------------------------------ the sharded step (28)
+
+MESH_MOE_SHAPES = {"verify": (4, 7), "prefill": (1, 512), "decode": (4, 1)}
+# 28a: the mesh path against the path without a mesh on the same bf16
+# inputs, relative to the latter's max |y|: on a world of one every
+# collective is a copy and the local math is the same, so it should be 0
+MESH_TOL_REL = 1e-2
+MESH_TIMED_ITERS = 20
+MESH_DEVICE = "cuda"
+# 28c: the one-card sharded trace's peak (arguments included) against the
+# growth of max_memory_allocated over the real step from before its
+# params, relative
+MG_PEAK_TOL = 1e-2
+
+
+def nccl_world_of_one():
+    """An NCCL process group of one rank on this card at a free local
+    port, and the (1, 1) mesh named data, model over it."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    return make_mesh((1, 1), ("data", "model"), "cuda")
+
+
+def moe_mesh_layer(mesh, smi):
+    """28a: granite's MoE layer at published width (d 1536, 40 experts
+    top-8 of width 512) in bf16 at cf 1.25 and E/k, through ``moe_ffn``
+    with the mesh installed, in the baseline profile at a verify's 28
+    tokens and a prefill's 512 (the ZeRO-gather region), in the optimized
+    profile at the same (the weight-stationary path at 28, ZeRO-gather at
+    512) and at 4 (weight-stationary): y and aux against the path without
+    a mesh on the same inputs, the recorder's collective bytes by kind,
+    ms with and without the mesh (CUDA events), and the NCCL kernels the
+    profiler sees in one call."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.collectives import StepRecorder
+    from repro_torch.models import moe
+    from repro_torch.sharding import context
+    from torch.profiler import ProfilerActivity, profile
+    full = get_config(GRANITE)
+    gen = torch.Generator(device=MESH_DEVICE).manual_seed(28)
+    rows, ok = [], True
+    for cf in (full.moe_capacity_factor,
+               full.num_experts / full.num_experts_per_tok):
+        cfg = full.replace(moe_capacity_factor=cf)
+        p = moe.init_moe(gen, cfg, torch.bfloat16, MESH_DEVICE)
+        for label, (B, S) in MESH_MOE_SHAPES.items():
+            x = torch.randn((B, S, cfg.d_model), generator=gen,
+                            device=MESH_DEVICE).to(torch.bfloat16)
+            want, want_aux = moe.moe_ffn(p, x, cfg)
+            plain_ms = cuda_ms(lambda: moe.moe_ffn(p, x, cfg, with_aux=False),
+                               iters=MESH_TIMED_ITERS)
+            profiles = ("optimized",) if label == "decode" else \
+                ("baseline", "optimized")
+            for prof in profiles:
+                context.set_profile(prof)
+                try:
+                    with context.use_mesh(mesh, ("data",), "model"):
+                        with StepRecorder() as rec:
+                            got, aux = moe.moe_ffn(p, x, cfg)
+                        mesh_ms = cuda_ms(lambda: moe.moe_ffn(
+                            p, x, cfg, with_aux=False), iters=MESH_TIMED_ITERS)
+                finally:
+                    context.set_profile("baseline")
+                scale = float(want.float().abs().max())
+                err = float((got.float() - want.float()).abs().max())
+                path = ("weight_stationary" if prof == "optimized"
+                        and B * S <= 64 else "zero_gather")
+                row = {"cf": cf, "tokens": B * S, "shape": [B, S],
+                       "profile": prof, "path": path, "max_abs_err": err,
+                       "scale": scale, "tol_rel": MESH_TOL_REL,
+                       "equal_bits": torch.equal(got, want),
+                       "aux_err": abs(float(aux) - float(want_aux)),
+                       "collective_bytes": rec.collectives(),
+                       "collective_calls": dict(rec.calls),
+                       "ms_mesh": mesh_ms, "ms_no_mesh": plain_ms}
+                rows.append(row)
+                ok &= err <= MESH_TOL_REL * scale and row["aux_err"] <= 1e-5 \
+                    and bool(row["collective_bytes"])
+        del p
+    context.set_profile("baseline")
+    x = torch.randn((1, 512, full.d_model), generator=gen,
+                    device=MESH_DEVICE).to(torch.bfloat16)
+    p = moe.init_moe(gen, full, torch.bfloat16, MESH_DEVICE)
+    with context.use_mesh(mesh, ("data",), "model"):
+        moe.moe_ffn(p, x, full)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            moe.moe_ffn(p, x, full)
+            torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if "nccl" in e.key.lower() or "memcpy" in e.key.lower()})
+    out = {"phase": "28a", "arch": full.name, "d_model": full.d_model,
+           "experts": full.num_experts, "top_k": full.num_experts_per_tok,
+           "expert_d_ff": full.d_ff, "mesh": {"data": 1, "model": 1},
+           "backend": "nccl", "rows": rows,
+           "nccl_and_copy_kernels_one_call": names, "nvidia_smi": smi}
+    emit(out)
+    assert ok, ("a mesh path of the MoE layer diverged from the path "
+                "without a mesh, or recorded no collective", rows)
+    paths = {(r["profile"], r["path"]) for r in rows}
+    assert ("optimized", "weight_stationary") in paths and \
+        ("baseline", "zero_gather") in paths, paths
+    del p, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_mesh_serving(mesh):
+    """28b: phase 25d's set-up (granite with 2 float32 target layers at cf
+    E/k and its drafter at published widths, 2 prompts of 64, 16 greedy
+    tokens by tree (2, 2)) served with the mesh installed, in both
+    profiles: tokens equal to those without the mesh, and 2 + 4 * 3
+    tree_attention launches a round. Returns (the launches, the line)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.speculative import SDConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import context
+    from repro_torch.spectree.round import tree_speculative_generate
+    from repro_torch.spectree.tree import TreeSpec
+    full = get_config(GRANITE)
+    cfg = full.replace(num_layers=2, dtype="float32", moe_capacity_factor=
+                       full.num_experts / full.num_experts_per_tok)
+    target = Model(cfg, MESH_DEVICE)
+    t_params = target.init(0)
+    draft = Model(cfg.drafter(), MESH_DEVICE)
+    d_params = draft.init(1)
+    prompt = torch.as_tensor(serve.make_prompts(2, 64, cfg.vocab_size, seed=5),
+                             device=target.device)
+    sdc, spec = SDConfig(gamma=3, temperature=0.0), TreeSpec((2, 2))
+    plain, _ = tree_speculative_generate(draft, target, d_params, t_params,
+                                         prompt, 16, sdc, spec)
+    per_round = tree_launches_per_round(target, draft, spec)
+    out, launches = {"phase": "28b", "arch": cfg.name, "target_layers": 2,
+                     "capacity_factor": cfg.moe_capacity_factor,
+                     "per_round": per_round}, 0
+    for prof in ("baseline", "optimized"):
+        context.set_profile(prof)
+        ops.reset_launches()
+        try:
+            with context.use_mesh(mesh, ("data",), "model"):
+                toks, st = tree_speculative_generate(
+                    draft, target, d_params, t_params, prompt, 16, sdc, spec)
+        finally:
+            context.set_profile("baseline")
+        got = dict(ops.LAUNCHES)
+        out[prof] = {"tokens_equal": torch.equal(toks, plain),
+                     "rounds": st.rounds, "launches": got}
+        launches += got["tree_attention"]
+        assert out[prof]["tokens_equal"], ("tokens with the mesh differ", out)
+        assert got == {**{k: 0 for k in got},
+                       "tree_attention": st.rounds * per_round}, out
+    del target, draft, t_params, d_params
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase28_sharded(smi):
+    """The sharded step on the card (after phase 27): NCCL refuses two
+    ranks on one device, so the mesh paths run on a world of one over
+    NCCL, a (1, 1) mesh named data, model: (a) ``moe_mesh_layer``; (b)
+    ``moe_mesh_serving``; the group is destroyed at the end. (c) runs in
+    ``finish_dry_runs`` once its subprocesses are done. Returns (b)'s
+    tree_attention launches."""
+    import torch.distributed as dist
+    mesh = nccl_world_of_one()
+    try:
+        moe_mesh_layer(mesh, smi)
+        launches, serving = moe_mesh_serving(mesh)
+    finally:
+        dist.destroy_process_group()
+    emit({**serving, "nvidia_smi": smi})
+    return launches
 
 
 PHASE_SECONDS = {}
@@ -4783,7 +5101,10 @@ def main():
     torch.cuda.empty_cache()
     rec_launches = timed(26, phase26_recurrent, smi)
     torch.cuda.empty_cache()
-    timed(27, phase27_codebooks, smi)
+    dry_procs = start_dryrun_clis()     # 27c/28c: beside phases 27 to 7
+    c27 = timed(27, phase27_codebooks, smi)
+    torch.cuda.empty_cache()
+    sharded_tree = timed(28, phase28_sharded, smi)
     torch.cuda.empty_cache()
     timed(5, phase5_greedy_exactness)
     torch.cuda.empty_cache()
@@ -4795,6 +5116,7 @@ def main():
     launches.update({k: v for k, v in timed(7, phase7_training, smi).items()
                      if k in ("row_logsumexp", "loss_terms", "loss_grad")})
     torch.cuda.empty_cache()
+    timed("27c-28c", finish_dry_runs, dry_procs, c27, smi)
     timed(8, phase8_float32_routes)
     torch.cuda.empty_cache()
     # phase 9 runs last: after its M 512 timings the host dispatched phase
@@ -4843,6 +5165,10 @@ def main():
         # (quantized matmul) and TVD++ steps (the distill kernels); its
         # chain and AR rounds in bf16 launch none
         kernels[-1]["recurrent_path_launches"] = rec_launches.get(name, 0)
+        # launches on the sharded path (phase 28b): granite's tree passes
+        # with the mesh of one installed; no other kernel runs there
+        kernels[-1]["sharded_path_launches"] = (
+            sharded_tree if name == "tree_attention" else 0)
         if name == "quant_matmul_int8":
             kernels[-1]["zamba2_m4"] = zamba_m4
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,

@@ -1,4 +1,5 @@
-"""Production mesh construction (``repro.launch.mesh``), for the dry run.
+"""Mesh construction (``repro.launch.mesh``): the production meshes of
+the dry run, and a named mesh over a real process group.
 
 Single pod: (data=16, model=16) = 256 ranks.
 Multi-pod:  (pod=2, data=16, model=16) = 512 ranks.
@@ -9,6 +10,12 @@ dry run on one host needs. Installing a process group is a process-wide
 side effect (the reference's counterpart is its ``XLA_FLAGS`` device
 count), so only the dry run's own process calls ``make_production_mesh``;
 importing this module touches nothing.
+
+``make_mesh`` names a ``DeviceMesh`` of any shape over the process group a
+caller has installed (``torch.distributed.init_process_group`` with its
+address, world size and rank given: gloo on the CPU, NCCL on the card),
+for the MoE mesh paths and the sharding constraints that read it from
+``sharding.context``.
 """
 from __future__ import annotations
 
@@ -48,6 +55,23 @@ def make_production_mesh(*, multi_pod: bool = False):
         raise RuntimeError(f"a process group of {dist.get_world_size()} "
                            f"ranks is installed; the mesh needs {n}")
     return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+
+
+def make_mesh(shape, axes, device_type: str = "cpu"):
+    """A ``DeviceMesh`` of ``shape`` with the axis names ``axes`` over the
+    installed process group, whose world size must be the mesh's."""
+    from torch.distributed.device_mesh import init_device_mesh
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized():
+        raise RuntimeError("install a process group first "
+                           "(torch.distributed.init_process_group)")
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"a process group of {dist.get_world_size()} "
+                           f"ranks is installed; the mesh needs {n}")
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
 
 
 def mesh_axes(mesh):

@@ -11,9 +11,12 @@ D (train) / 2 N D (inference), N = active non-embedding params, and
 MODEL_FLOPS / FLOPs exposes remat and dispatch waste. The bytes model keeps
 the reference's 16-way model axis and 256-chip batch divisor.
 
-The reference parses collective bytes out of post-SPMD HLO; the port has
-no counterpart yet (a sharded trace with DTensor, ROADMAP §1 item 6b), so
-``analyze`` reports the collective term as not counted.
+The reference parses collective bytes out of post-SPMD HLO; the port
+counts them in a sharded trace of the step on DTensors
+(``launch.collectives.StepRecorder`` in ``launch.dryrun``): one rank's
+result bytes by kind, which ``analyze`` takes as the collective bytes per
+chip. DTensor, not XLA's GSPMD, chooses the collectives of a whole step,
+so those bytes are the port's own model numbers.
 """
 from __future__ import annotations
 
@@ -25,10 +28,6 @@ PEAK_FLOPS = 989e12          # bf16 FLOP/s per card
 HBM_BW = 3.35e12             # HBM3 bytes/s per card
 LINK_BW = 450e9              # NVLink 4 bytes/s per card, one direction
 HBM_BYTES = 80e9             # HBM per card
-
-COLLECTIVE_NOT_COUNTED = ("not counted: the port has no sharded trace yet "
-                          "(ROADMAP §1 item 6b)")
-
 
 # ======================================================== analytic flops/bytes
 
@@ -203,21 +202,28 @@ def roofline_terms(flops_per_chip, hbm_bytes_per_chip, coll_bytes_per_chip):
 
 def analyze(cfg: ModelConfig, shape: ShapeConfig, chips: int,
             long_context: bool = False, profile: str = "baseline",
-            msize: int = 16) -> dict:
-    """The reference's ``analyze`` without the HLO: analytic flops and HBM
-    bytes per chip, the compute and memory terms at the H100's rates, and
-    the collective term as not counted. ``msize`` is the size of the
-    mesh's model axis (the reference's 16; 1 on one card)."""
+            msize: int = 16, collectives=None) -> dict:
+    """The reference's ``analyze`` with counted collectives in place of
+    the HLO: analytic flops and HBM bytes per chip, and the compute,
+    memory and collective terms at the H100's rates. ``collectives`` is
+    one rank's {kind: result bytes} of the sharded trace
+    (``launch.collectives``); their sum is the collective bytes per chip
+    and the bottleneck is the largest of the three terms. Without them (a
+    mesh stand-in that no process group backs) the collective fields are
+    None and the bottleneck the larger of the other two. ``msize`` is the
+    size of the mesh's model axis (the reference's 16; 1 on one card)."""
     fl = flops_model(cfg, shape, long_context) / chips
     byts = bytes_model(cfg, shape, chips, long_context, profile, msize)
-    terms = roofline_terms(fl, byts, 0.0)
-    terms["t_collective_s"] = None
+    coll = None if collectives is None else float(sum(collectives.values()))
+    terms = roofline_terms(fl, byts, coll or 0.0)
+    if coll is None:
+        terms["t_collective_s"] = None
     mf = model_flops(cfg, shape)
     return {
         "arch": cfg.name, "shape": shape.name, "chips": chips,
         "flops_per_chip": fl, "hbm_bytes_per_chip": byts,
-        "collective_bytes_per_chip": None,
-        "collectives": COLLECTIVE_NOT_COUNTED,
+        "collective_bytes_per_chip": coll,
+        "collectives": None if collectives is None else dict(collectives),
         **terms,
         "model_flops_total": mf,
         "useful_flops_ratio": (mf / chips / fl) if fl else 0.0,

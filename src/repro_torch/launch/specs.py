@@ -16,6 +16,8 @@ each leaf stands its ``sharding.rules.ParamSharding``:
 
 ``argument_bytes`` sums one rank's shard of every input: the port's
 counterpart of the argument bytes of the reference's ``memory_analysis``.
+``dtensor_inputs`` wraps each fake input's shard of one rank as a DTensor
+with the placements above, for the sharded trace of ``launch.dryrun``.
 The ``optimized`` profile serves bf16 params under ``INFERENCE_RULES`` in
 the port's served layout (``models.layers``: matmul weights in the
 compute dtype, norms, routers and recurrent gates float32).
@@ -135,6 +137,34 @@ def _pairs(tree, shard):
             yield from _pairs(a, b)
     else:
         yield tree, shard
+
+
+def dtensor_inputs(specs, mesh, mode):
+    """{input name: tree of DTensors} on the ``DeviceMesh`` ``mesh``: each
+    leaf of ``input_specs`` as one rank's fake local shard (its
+    ``local_shape`` under the leaf's pspec) with the leaf's placements and
+    global shape. Leaves that are one tensor (labels alias tokens) stay
+    one DTensor."""
+    from torch.distributed.tensor import DTensor
+    made = {}
+
+    def wrap(leaf, sh):
+        if id(leaf) not in made:
+            local = _fake(mode, local_shape(tuple(leaf.shape), sh.pspec, mesh),
+                          leaf.dtype)
+            made[id(leaf)] = DTensor.from_local(
+                local, mesh, sh.placements, run_check=False,
+                shape=leaf.shape, stride=leaf.stride())
+        return made[id(leaf)]
+
+    def rec(tree, shard):
+        if isinstance(tree, dict):
+            return {k: rec(tree[k], shard[k]) for k in tree}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(rec(a, b) for a, b in zip(tree, shard))
+        return wrap(tree, shard)
+
+    return {name: rec(tree, shard) for name, (tree, shard) in specs.items()}
 
 
 def argument_bytes(specs, mesh) -> int:

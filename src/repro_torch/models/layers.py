@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..sharding import context as shctx
 
 #: leaves held in float32 whatever the weights' dtype, as the reference
 #: holds or reads them: the norms, an MoE router, and the gates, convs,
@@ -46,7 +47,7 @@ def matmul_param(x, w):
         return ops.dequant_matmul(x, w).to(x.dtype)
     if _ACT_CAPTURE is not None:
         _ACT_CAPTURE.record(w, x)
-    return x @ w.to(x.dtype)
+    return shctx.tp_layout(x @ w.to(x.dtype))
 
 
 def trunc_normal(gen, shape, scale, dtype, device):
@@ -108,7 +109,14 @@ def swiglu(params, x):
 def embed_tokens(table, tokens):
     """tokens (B, S) int -> (B, S, D) rows of a (V, D) ``table``; or, for a
     multi-codebook model, (B, K, S) ids -> the sum over k of the rows of
-    codebook k's table in a (K, V, D) ``table``, summed in float32."""
+    codebook k's table in a (K, V, D) ``table``, summed in float32. A
+    sharded step looks its rows' ids up in the whole table on each rank
+    (``batch_local``): DTensor has no rule for the lookup's backward on a
+    sharded table."""
+    return shctx.batch_local(_embed_local, (tokens,), (table,))
+
+
+def _embed_local(tokens, table):
     if table.dim() == 2:
         return table[tokens]
     book = torch.arange(table.shape[0], device=tokens.device)[None, :, None]
@@ -120,6 +128,7 @@ def lm_head_logits(w, x, cap: Optional[float] = None):
     (..., K, V) set of logits per codebook."""
     if hasattr(w, "bits") or w.dim() == 2:
         logits = matmul_param(x, w)
-    else:
-        logits = torch.einsum("...d,kdv->...kv", x, w.to(x.dtype))
+    else:           # a sharded step uses the (K, D, V) head whole
+        logits = torch.einsum("...d,kdv->...kv", x,
+                              shctx.maybe_constraint(w).to(x.dtype))
     return softcap(logits.float(), cap)

@@ -23,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding import context as shctx
 from .layers import matmul_param, rms_norm, trunc_normal
 
 
@@ -74,6 +75,14 @@ def _causal_conv(xBC, conv_w, conv_b, tail=None):
     tail: (B, w-1, C), the previous call's last inputs (zeros at the
     start). Computed in float32 by one grouped ``conv1d``; returns (the
     float32 output, the new tail in xBC's dtype)."""
+    if tail is None:    # a sharded step convolves a rank's rows, every
+        # channel: DTensor's grouped conv1d cannot split the groups
+        return shctx.batch_local(_conv_local, (xBC,), (conv_w, conv_b))
+    return shctx.batch_local(lambda x, t, w, b: _conv_local(x, w, b, t),
+                             (xBC, tail), (conv_w, conv_b))
+
+
+def _conv_local(xBC, conv_w, conv_b, tail=None):
     w = conv_w.shape[0]
     B, S, C = xBC.shape
     if tail is None:
@@ -98,7 +107,13 @@ def chunked_ssd(xh, Bm, Cm, dt, log_decay, chunk):
     xh: (B, S, H, P) inputs; Bm/Cm: (B, S, N), shared by the heads; dt:
     (B, S, H); log_decay: (B, S, H), negative. Returns y (B, S, H, P) and
     the final state (B, H, P, N). A length that is no multiple of
-    ``chunk`` runs as one chunk, as in the reference."""
+    ``chunk`` runs as one chunk, as in the reference. A sharded step runs
+    it on each rank's rows (``batch_local``)."""
+    return shctx.batch_local(lambda *a: _chunked_ssd(*a, chunk),
+                             (xh, Bm, Cm, dt, log_decay))
+
+
+def _chunked_ssd(xh, Bm, Cm, dt, log_decay, chunk):
     Bsz, S, H, Pd = xh.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -142,7 +157,7 @@ def _out(params, y, xh, z, cfg, dtype):
     """D skip, gate by SiLU(z), RMSNorm, output projection."""
     B, S = y.shape[:2]
     y = y + params["D"][:, None] * xh.float()
-    y = y.reshape(B, S, -1).to(dtype)
+    y = shctx.tp_layout(y.reshape(B, S, -1).to(dtype), y.shape[2])
     y = rms_norm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
     return matmul_param(y, params["w_out"])
 
@@ -180,6 +195,10 @@ def ssd_steps(h, xh, Bm, Cm, dt, ld):
     """The step recurrence from state h (B, H, P, N): for each of the T
     tokens h = exp(ld) h + (x dt) B^T, y = h C. Returns (y (B, T, H, P),
     the last state)."""
+    return shctx.batch_local(_ssd_steps, (h, xh, Bm, Cm, dt, ld))
+
+
+def _ssd_steps(h, xh, Bm, Cm, dt, ld):
     ys = []
     for t in range(xh.shape[1]):
         inp = (xh[:, t] * dt[:, t, :, None])[..., None] * Bm[:, t, None, None]

@@ -46,6 +46,7 @@ from . import xlstm as xlstm_mod
 from .layers import (dense_param, embed_tokens, lm_head_logits, rms_norm,
                      swiglu, trunc_normal)
 from .moe import init_moe, moe_ffn
+from ..sharding import context as shctx
 
 
 _ATTN_KINDS = (ATTN, LOCAL_ATTN, SHARED_ATTN)
@@ -250,7 +251,31 @@ def _ffn(lp, x, cfg, with_aux=False):
     ``with_aux``, else None; None for a SwiGLU)."""
     if "moe" in lp:
         return moe_ffn(lp["moe"], x, cfg, with_aux=with_aux)
+    x = _maybe_seq_shard_ffn(x)        # the reference's context-parallel FFN
     return swiglu(lp["mlp"], x), None
+
+
+def _maybe_seq_shard_ffn(h):
+    """Optimized profile, long sequences (the reference's §Perf it.3):
+    shard the FFN input on its sequence over the model axis, so the FFN
+    runs (B, S/16, d) against the TP weights and exchanges (B, S/16, d)
+    activations instead of the replicated sequence's. A no-op without a
+    mesh, in the baseline profile, below 4096 positions, where the model
+    axis does not divide them, and on a plain tensor."""
+    mesh = shctx.get_mesh()
+    if mesh is None or not shctx.optimized():
+        return h
+    sizes = shctx.mesh_sizes(mesh)
+    maxis = shctx.model_axis()
+    S = h.shape[1]
+    if S < 4096 or S % sizes[maxis] != 0:
+        return h
+    daxes = shctx.data_axes()
+    nB = 1
+    for a in daxes:
+        nB *= sizes[a]
+    b = daxes if h.shape[0] % nB == 0 else ()
+    return shctx.maybe_constraint(h, b, maxis, None)
 
 
 def _mixer(lp, kind, h, cfg, mode, positions, cache, window, cache_len,
@@ -293,6 +318,7 @@ def apply_block(lp, kind, x, cfg, mode, positions, cache=None, window=None,
                 with_aux=False):
     """One pre-norm layer: (x after it, its cache (None in training), the
     MoE aux with ``with_aux`` or None)."""
+    x = shctx.batch_constraint(x)     # a sharded step's residual stream
     y, c = _mixer(lp, kind, rms_norm(x, lp["norm1"], cfg.norm_eps), cfg,
                   mode, positions, cache, window, cache_len, slots, attn_mask,
                   page_table)

@@ -22,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding import context as shctx
 from .layers import matmul_param, rms_norm, trunc_normal
 
 # --------------------------------------------------------------------- mLSTM
@@ -60,9 +61,12 @@ def _mlstm_qkv(params, x, cfg):
     B, S, _ = x.shape
     _, nh, p = mlstm_dims(cfg)
     xi, z = matmul_param(x, params["w_up"]).chunk(2, dim=-1)
-    q = matmul_param(xi, params["w_q"]).reshape(B, S, nh, p) / math.sqrt(p)
-    k = matmul_param(xi, params["w_k"]).reshape(B, S, nh, p)
-    v = matmul_param(xi, params["w_v"]).reshape(B, S, nh, p)
+    q = shctx.tp_layout(matmul_param(xi, params["w_q"]), nh)
+    k = shctx.tp_layout(matmul_param(xi, params["w_k"]), nh)
+    v = shctx.tp_layout(matmul_param(xi, params["w_v"]), nh)
+    q = q.reshape(B, S, nh, p) / math.sqrt(p)
+    k = k.reshape(B, S, nh, p)
+    v = v.reshape(B, S, nh, p)
     gates = xi.float() @ params["w_if"] + params["b_if"]
     ig, fg = gates.chunk(2, dim=-1)                      # (B, S, nh)
     return z, q, k, v, torch.sigmoid(ig), F.logsigmoid(fg)
@@ -72,7 +76,13 @@ def chunked_gla(v, k, q, gate_i, log_f, chunk):
     """Gated linear attention, chunked, float32, per head.
 
     v: (B, S, H, P), k/q: (B, S, H, N), gate_i/log_f: (B, S, H). Returns y
-    (B, S, H, P) and the final state (B, H, N, P)."""
+    (B, S, H, P) and the final state (B, H, N, P). A sharded step runs it
+    on each rank's rows (``batch_local``)."""
+    return shctx.batch_local(lambda *a: _chunked_gla(*a, chunk),
+                             (v, k, q, gate_i, log_f))
+
+
+def _chunked_gla(v, k, q, gate_i, log_f, chunk):
     B, S, H, Pd = v.shape
     N = k.shape[-1]
     Q = min(chunk, S)
@@ -114,7 +124,7 @@ def _mlstm_out(params, y_aug, z, cfg, dtype):
     B, S = y_aug.shape[:2]
     _, _, p = mlstm_dims(cfg)
     y = y_aug[..., :p] / y_aug[..., p:].abs().clamp(min=1.0)
-    y = y.reshape(B, S, -1).to(dtype)
+    y = shctx.tp_layout(y.reshape(B, S, -1).to(dtype), cfg.num_heads)
     y = rms_norm(y, params["norm_w"], cfg.norm_eps) * F.silu(z)
     return matmul_param(y, params["w_down"])
 
@@ -139,6 +149,10 @@ def gla_steps(h, q, k, v, gate_i, log_f):
     """The step recurrence from state h (B, H, N, P): for each of the T
     tokens h = f h + i k v^T, y = q h. Returns (y (B, T, H, P), the last
     state)."""
+    return shctx.batch_local(_gla_steps, (h, q, k, v, gate_i, log_f))
+
+
+def _gla_steps(h, q, k, v, gate_i, log_f):
     ys = []
     for t in range(q.shape[1]):
         kv = (k[:, t].float() * gate_i[:, t, :, None])[..., None] * v[:, t, :, None]
@@ -175,7 +189,18 @@ def init_slstm(gen, cfg, wdt, device):
 
 def _slstm_scan(params, wx, cfg, carry):
     """wx: (B, S, 4d) input contributions; carry {"c", "n", "h", "m"}.
-    Returns (new carry, h of every step (B, S, d) float32)."""
+    Returns (new carry, h of every step (B, S, d) float32). A sharded step
+    runs it on each rank's rows with the recurrent weights whole
+    (``batch_local``)."""
+    def local(wx, c, n, h, m, r, b):
+        return _slstm_local({"r_gates": r, "b_gates": b}, wx, cfg,
+                            {"c": c, "n": n, "h": h, "m": m})
+    return shctx.batch_local(
+        local, (wx, carry["c"], carry["n"], carry["h"], carry["m"]),
+        (params["r_gates"], params["b_gates"]))
+
+
+def _slstm_local(params, wx, cfg, carry):
     B, S, d4 = wx.shape
     d = d4 // 4
     nh = cfg.num_heads

@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 from torch.distributed.tensor import Replicate, Shard
 
-from ..models import transformer as tfm
+from .context import mesh_sizes
 
 DEFAULT_RULES = {
     "fsdp": "data",
@@ -70,14 +70,6 @@ class ParamSharding(NamedTuple):
     trailing Nones dropped) and the DTensor placements they imply."""
     pspec: Tuple
     placements: Tuple
-
-
-def mesh_sizes(mesh) -> dict:
-    """{axis name: size} of a DeviceMesh or of a stand-in with a dict
-    ``shape``."""
-    if isinstance(mesh.shape, dict):
-        return dict(mesh.shape)
-    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def _mesh_size(sizes, axis) -> int:
@@ -164,6 +156,7 @@ def param_specs(cfg):
     for ``cfg``, in a tree of the same structure: a block's leaves by
     ``BLOCK_SPECS``, norms (None,), the embedding (tp, fsdp) and the head
     (fsdp, tp), each with a leading None per codebook axis."""
+    from ..models import transformer as tfm   # models import the context
     book = (None,) if cfg.num_codebooks > 1 else ()
 
     def rec(tree, block=None, name=None):

@@ -110,8 +110,17 @@ def test_roofline_terms_differ_only_by_the_constants():
                                      t["t_collective_s"])
     a = roofline.analyze(tcfgs.get_config("yi-9b"), tcfgs.INPUT_SHAPES["decode_32k"],
                          256)
-    assert a["t_collective_s"] is None and "item 6b" in a["collectives"]
+    assert a["t_collective_s"] is None and a["collectives"] is None
+    assert a["collective_bytes_per_chip"] is None
     assert a["bottleneck"] == "memory"
+    # counted collectives: their sum is the bytes per chip, over NVLink's
+    # rate the term, and the largest term the bottleneck
+    coll = {"all-gather": 3e9, "all-reduce": 1e9}
+    a = roofline.analyze(tcfgs.get_config("yi-9b"), tcfgs.INPUT_SHAPES["decode_32k"],
+                         256, collectives=coll)
+    assert a["collectives"] == coll and a["collective_bytes_per_chip"] == 4e9
+    assert a["t_collective_s"] == pytest.approx(4e9 / 450e9, rel=1e-12)
+    assert a["bottleneck"] == "collective" and a["t_bound_s"] == a["t_collective_s"]
 
 
 def test_logical_to_pspec_equals_the_references():
@@ -287,17 +296,36 @@ def test_counted_flops_equal_the_flop_counter_on_real_tensors(kind):
     assert 0.5 < ours / fc.get_total_flops() < 2.0
 
 
+@pytest.fixture(scope="module")
+def fake_mesh():
+    """A DeviceMesh of the reference test's FakeMesh sizes (data 4, model
+    2) over the fake backend: this module's only process group, torn down
+    after it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_mesh
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", rank=0, world_size=8, store=FakeStore())
+    yield make_mesh((4, 2), ("data", "model"))
+    dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("arch", list(jcfgs.ASSIGNED))
-def test_reduced_configs_run_at_the_four_shapes(arch):
+def test_reduced_configs_run_at_the_four_shapes(arch, fake_mesh):
     """Each reduced config through ``dryrun.run_cfg`` on the reference
     test's FakeMesh sizes at the four assigned shapes' kinds and batches:
     decode_32k and long_500k at their own lengths; train_4k and
     prefill_32k at 1/64 of theirs (the trace's op count grows with the
     length: 20-130 s a combination at full length on this CPU). Counted
     FLOPs above half the analytic model and, for a dense config, below
-    2.5x; the analytic numbers the roofline's; the arguments small.""" 
+    2.5x; the analytic numbers the roofline's; the arguments small. The
+    mesh is a DeviceMesh, so the same inputs are traced sharded too: a
+    collective term (bytes by kind, over NVLink's rate) and one rank's
+    memory, whose arguments are the argument bytes (labels alias tokens
+    in a train step, so counted once there) and whose peak holds them and
+    the outputs."""
     cfg = tcfgs.reduced(tcfgs.get_config(arch))
-    mesh = Mesh(MESHES["fake"])
+    mesh = fake_mesh
     for name, s in tcfgs.INPUT_SHAPES.items():
         seq = s.seq_len if s.kind == "decode" else s.seq_len // 64
         shape = ShapeConfig(name, seq, s.global_batch, s.kind)
@@ -312,6 +340,19 @@ def test_reduced_configs_run_at_the_four_shapes(arch):
             roofline.flops_model(cfg, shape, name == "long_500k") / 8)
         assert 0 < r["argument_bytes_per_rank"] < 2e9
         assert r["fits_one_card"]
+        coll = r["collectives"]
+        assert coll and set(coll) <= {"all-reduce", "all-gather",
+                                      "reduce-scatter", "all-to-all",
+                                      "collective-permute"}, (name, r)
+        assert r["collective_bytes_per_chip"] == sum(coll.values()) > 0
+        assert r["t_collective_s"] == pytest.approx(
+            r["collective_bytes_per_chip"] / roofline.LINK_BW)
+        labels = s.global_batch * cfg.num_codebooks * seq * 4 // 4 \
+            if s.kind == "train" else 0
+        m = r["memory"]
+        assert m["argument_bytes"] == r["argument_bytes_per_rank"] - labels
+        assert m["peak_bytes"] >= m["argument_bytes"] + m["output_bytes"]
+        assert m["output_bytes"] > 0
 
 
 def test_argument_bytes_are_the_local_shards():
@@ -357,12 +398,15 @@ def _run_cli(*args, timeout=900):
 
 def test_cli_runs_every_arch_at_decode_32k_without_allocating(tmp_path):
     """``--all --shape decode_32k``: every assigned arch at full width on
-    the (16, 16) mesh in its own subprocess, exit 0; the ranks' arguments
-    weigh at least the float32 parameters (10-1,270 GB) while the process
-    stays under 1 GB of host memory and never initialises CUDA; the
-    analytic numbers are the reference's, and the counted FLOPs fall within
-    0.5-2x of them."""
-    proc = _run_cli("--all", "--shape", "decode_32k", "--out", str(tmp_path))
+    the (16, 16) mesh in its own subprocess (three at a time), exit 0; the
+    ranks' arguments weigh at least the float32 parameters (10-1,270 GB)
+    while the process stays under 1 GB of host memory and never
+    initialises CUDA; the analytic numbers are the reference's, and the
+    counted FLOPs fall within 0.5-2x of them. The sharded trace gives a
+    collective term (bytes by kind, NVLink's rate) and one rank's memory,
+    its arguments the argument bytes and its peak above them."""
+    proc = _run_cli("--all", "--shape", "decode_32k", "--jobs", "3",
+                    "--out", str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-3000:]
     results = json.loads((tmp_path / "dryrun_singlepod.json").read_text())
     assert [r["arch"] for r in results] == list(jcfgs.ASSIGNED)
@@ -380,6 +424,16 @@ def test_cli_runs_every_arch_at_decode_32k_without_allocating(tmp_path):
         assert r["hbm_bytes_per_chip"] == j["hbm_bytes_per_chip"]
         assert r["model_flops_total"] == j["model_flops_total"]
         assert r["useful_flops_ratio"] == pytest.approx(j["useful_flops_ratio"])
+        coll = r["collectives"]
+        assert coll and set(coll) <= {"all-reduce", "all-gather",
+                                      "reduce-scatter", "all-to-all",
+                                      "collective-permute"}, r
+        assert r["collective_bytes_per_chip"] == sum(coll.values()) > 0
+        assert r["t_collective_s"] == pytest.approx(
+            r["collective_bytes_per_chip"] / roofline.LINK_BW)
+        m = r["memory"]
+        assert m["argument_bytes"] == r["argument_bytes_per_rank"], r
+        assert m["peak_bytes"] >= m["argument_bytes"] + m["output_bytes"]
     assert "10/10 combos traced" in proc.stderr
 
 
