@@ -289,8 +289,23 @@ Phases, each printing one JSON line and then one line of its seconds:
      CLIs' collective term and one rank's peak, and the one-card sharded
      trace of (27a)'s decode step: its peak within 1% of the growth of
      max_memory_allocated over the real step from before its params.
-Phases 23-28 run after phase 22; phases 10, 11, 13-15, 18 and 21 run before
-phase 9. Then the ``kernels`` line, the
+ 29. the static analysis (``repro_torch.analysis``; after phase 22, on
+     phase 3's models): (a) one chain round (gamma 3) and one tree round
+     (2, 2) of the full-width pair, after a warm-up round, under
+     ``torch.cuda.set_sync_debug_mode("error")``: no sync, every state
+     leaf's shape, dtype and device unchanged, every cache leaf in its
+     storage, 44 tree_attention launches in the tree round; (b) a warm
+     continuous engine with 8 slots, chain and tree: one fetch and one
+     ``Memcpy DtoH`` (the profiler) a decode round with no other sync,
+     and over 16 more rounds no kernel build or load and no growth of the
+     caching allocator's segments or device allocations; (c) the kernel
+     lint on the card, every instance of the seven kernels (registers,
+     static and dynamic shared memory, blocks an SM, spills) against
+     Hopper's limits and the launch plans at the swept shapes, 0 errors,
+     and ``python -m repro_torch.analysis --all --json`` in a subprocess
+     beside phases 27 to 7 (read after phase 7), exit 0.
+Phase 29 runs after phase 22, phases 23-28 after it; phases 10, 11, 13-15,
+18 and 21 run before phase 9. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
 non-zero exit code and no result line.
@@ -305,7 +320,6 @@ import json
 import math
 import os
 import re
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -538,34 +552,8 @@ def tree_bound_ms(q, k, v, mask):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
-PTXAS_USE = re.compile(r"Used (\d+) registers.*?(?:, (\d+) bytes smem)?$")
-PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
-
-
-def ptxas_report(log):
-    """Each kernel instance of nvcc's -Xptxas -v output (demangled where
-    c++filt exists) with its registers, static shared memory and spill
-    bytes."""
-    names, rows, spill = [], [], (0, 0)
-    for ln in log.splitlines():
-        if m := PTXAS_ENTRY.search(ln):
-            names.append(m[1])
-            spill = (0, 0)
-        elif m := PTXAS_SPILL.search(ln):
-            spill = (int(m[1]), int(m[2]))
-        elif (m := PTXAS_USE.search(ln)) and names:
-            rows.append([names[-1], int(m[1]), int(m[2] or 0), *spill])
-    if rows and shutil.which("c++filt"):
-        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
-                             capture_output=True, text=True, timeout=60).stdout
-        for r, name in zip(rows, out.splitlines()):
-            r[0] = name.replace("(anonymous namespace)::", "").split("(")[0]
-    return [f"{n}: {r} registers, {sm} B static smem, spills {st}/{ld} B"
-            for n, r, sm, st, ld in rows]
-
-
 def phase1_device_and_build():
+    from repro_torch.analysis.kernel_lint import ptxas_report
     from repro_torch.kernels import build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5042,6 +5030,126 @@ def phase28_sharded(smi):
     return launches
 
 
+ANALYSIS_ENGINE = dict(max_batch=8, prompt_len=32, max_new=96,
+                       page_size=16)    # 29b: 8 rows decoding for 19+ rounds
+
+
+def start_analysis_cli():
+    """29c's CLI, every checker on the card, in a process of its own beside
+    phases 27 to 7 (started with the dry-run CLIs: those phases assert no
+    host timing); one CPU thread (its CPU work is the round audit's fake
+    tensors and the tiny engines, on tiny shapes)."""
+    out = ROOT / "build" / "analysis.json"
+    out.parent.mkdir(exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--all", "--json",
+         str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def finish_analysis_cli(cli, smi, timeout=600):
+    """29c's CLI: exit 0, no error, every checker run on the card."""
+    proc, path = cli
+    out, _ = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, out[-4000:]
+    doc = json.loads(path.read_text())
+    assert doc["num_errors"] == 0 and set(doc["checkers"]) == {
+        "ast", "rounds", "kernels", "recompile"}, doc["checkers"].keys()
+    assert doc["device"] != "cpu", doc["device"]
+    emit({"phase": "29c", "cli": {
+        "num_errors": doc["num_errors"], "num_warnings": doc["num_warnings"],
+        "seconds": {k: v["seconds"] for k, v in doc["checkers"].items()},
+        "tail": out.strip().splitlines()[-1]}, "nvidia_smi": smi})
+
+
+def phase29_analysis(models, smi):
+    """The static analysis on the card, on phase 3's models: (a) one chain
+    round (gamma 3) and one tree round (2, 2) of the full-width pair after
+    a warm-up round, each under the sync debug mode "error": no sync, every
+    state leaf's shape, dtype and device unchanged, every cache leaf in its
+    storage, 44 tree_attention launches in the tree round; (b) the
+    continuous engine with 8 slots, chain and tree, warm: a decode round
+    makes one fetch and the profiler one Memcpy DtoH, with no other sync,
+    and 16 more rounds build and load nothing and grow no allocator
+    segment; (c) the kernel lint on the card (every instance's registers,
+    shared memory, blocks an SM and spills against Hopper's limits, and
+    the launch plans at the swept shapes), 0 errors; the CLI ``python -m
+    repro_torch.analysis --all --json`` runs in a subprocess beside phases
+    27 to 7 (``start_analysis_cli``, ``finish_analysis_cli``), exit 0."""
+    from repro_torch.analysis import round_audit as ra
+    from repro_torch.analysis.kernel_lint import run_kernel_lint
+    from repro_torch.analysis.recompile import run_sentinel
+    from repro_torch.core.speculative import SDConfig
+    from repro_torch.launch import serve
+    from repro_torch.spectree.tree import TreeSpec
+    target, t_params, draft, d_params, _ = models
+    sdc = SDConfig(gamma=3, temperature=0.7)
+    spec = TreeSpec((2, 2))
+    prompts = torch.as_tensor(serve.make_prompts(4, 128, target.cfg.vocab_size),
+                              device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    rounds = {}
+    t0 = time.perf_counter()
+    for name, s in (("chain", None), ("tree", spec)):
+        fs, launches = ra.run_live_audit(draft, target, d_params, t_params,
+                                         prompts, sdc, s, gen)
+        assert fs.findings == [], fs.format()
+        rounds[name] = launches
+    per_round = tree_launches_per_round(target, draft, spec)
+    assert per_round == 44 and rounds["tree"]["tree_attention"] == 44, rounds
+    assert rounds["chain"]["tree_attention"] == 0, rounds
+    t_a = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    engines = {name: ra.warm_engine(target, t_params, draft, d_params, s,
+                                    sdc, **ANALYSIS_ENGINE)
+               for name, s in (("chain", None), ("tree", spec))}
+    sentinel = run_sentinel("cuda", engines)
+    assert sentinel.findings == [], sentinel.format()
+    for name in engines:
+        tr = sentinel.stats[f"{name}_transfers"]
+        assert tr["fetches"] == 1 and tr["dtoh_copies"] == 1, tr
+        st = sentinel.stats[f"{name}_sentinel"]
+        assert st["allocator_after"] == st["allocator_before"], st
+        assert st["warm_builds"] == st["warm_loads"] == 0, st
+    del engines
+    t_b = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    lint = run_kernel_lint("cuda")
+    assert lint.errors == [], lint.format()
+    instances = lint.stats["instances"]
+    assert len(instances) >= 80, len(instances)
+    for r in instances:
+        print(f"29c {r['library']}: {r['symbol']}: {r['registers']} regs x "
+              f"{r['threads']} threads, smem {r['static_smem']} static + "
+              f"{r['dynamic_smem']} dynamic B, {r['blocks_per_sm']} blocks/SM, "
+              f"local {r['local_bytes']} B, spills {r['spill_stores']}/"
+              f"{r['spill_loads']} B", flush=True)
+    t_c = time.perf_counter() - t0
+    emit({"phase": 29, "live_rounds": {"launches": rounds,
+                                        "tree_attention_per_round": per_round},
+          "continuous": {k: v for k, v in sentinel.stats.items()},
+          "kernel_lint": {"instances": len(instances),
+                          "warnings": len(lint.warnings),
+                          "max_registers": max(r["registers"]
+                                               for r in instances),
+                          "max_smem": max(r["static_smem"] + r["dynamic_smem"]
+                                          for r in instances),
+                          "min_blocks_per_sm": min(r["blocks_per_sm"]
+                                                   for r in instances),
+                          "spilling": [r["symbol"] for r in instances
+                                       if r["spill_stores"]
+                                       or r["spill_loads"]]},
+          "seconds": {"29a": round(t_a, 3), "29b": round(t_b, 3),
+                      "29c": round(t_c, 3)},
+          "nvidia_smi": smi})
+
+
 PHASE_SECONDS = {}
 
 
@@ -5086,6 +5194,7 @@ def main():
     continuous = timed(16, phase16_continuous_serving, models, smi)
     head_launches = timed(19, phase19_head_serving, models, smi)
     timed(22, phase22_observability, models, smi)
+    timed(29, phase29_analysis, models, smi)
     del models
     gc.collect()        # the engines' reference cycles still hold the pair
     torch.cuda.empty_cache()
@@ -5102,6 +5211,7 @@ def main():
     rec_launches = timed(26, phase26_recurrent, smi)
     torch.cuda.empty_cache()
     dry_procs = start_dryrun_clis()     # 27c/28c: beside phases 27 to 7
+    analysis_cli = start_analysis_cli()     # 29c: likewise
     c27 = timed(27, phase27_codebooks, smi)
     torch.cuda.empty_cache()
     sharded_tree = timed(28, phase28_sharded, smi)
@@ -5117,6 +5227,7 @@ def main():
                      if k in ("row_logsumexp", "loss_terms", "loss_grad")})
     torch.cuda.empty_cache()
     timed("27c-28c", finish_dry_runs, dry_procs, c27, smi)
+    timed("29c", finish_analysis_cli, analysis_cli, smi)
     timed(8, phase8_float32_routes)
     torch.cuda.empty_cache()
     # phase 9 runs last: after its M 512 timings the host dispatched phase

@@ -142,7 +142,7 @@ def head_draft_tree(drafter: HeadDrafter, hp, t_params, t_cfg, sdc, spec,
     else:
         # the fused-input buffer grows level by level; a level's queries
         # attend their ancestors' fused inputs (self included)
-        anc = torch.as_tensor(spec.ancestors(), device=dev)
+        anc = spec.on(dev)["ancestors"]
         xbuf = h_feat.new_zeros((B, 0, hc.d_model))
         feat_par = h_feat[:, None]               # (B, 1, D): the root's parent
         for d in range(D + 1):

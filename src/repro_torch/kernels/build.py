@@ -3,8 +3,10 @@ libraries with a plain C interface, and loads them with ctypes.
 
 The sources include no PyTorch header, so one build takes seconds. Each
 library is named after a hash of its sources and lands in ``build/kernels``
-at the repository root (listed in ``.gitignore``); an edited source is
-rebuilt on its next use. A missing nvcc or a failed build raises.
+at the repository root (listed in ``.gitignore``), with nvcc's output (its
+ptxas register, shared memory and spill report) beside it in a ``.log``
+of the same name; an edited source is rebuilt on its next use. A missing
+nvcc or a failed build raises.
 """
 from __future__ import annotations
 
@@ -19,10 +21,10 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
 BUILD_TIMEOUT_S = 600
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}  # repolint: ignore[RL003] one dlopen a library
 
 
 def _nvcc() -> str:
@@ -41,16 +43,24 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """nvcc's output for the library of ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".log")
+
+
 def build_all(names: Iterable[str]) -> Dict[str, str]:
     """Compile every named source not yet built, one nvcc each, all started
     together. Returns the compiler output (with ptxas's register and shared
-    memory report) by name; raises if any build fails."""
+    memory report) by name, read back from the log of a library built
+    before; raises if any build fails."""
     jobs, logs = {}, {}
     try:
         for name in names:
             so = library_path(name)
             if so.exists():
-                logs[name] = "(already built)"
+                log = log_path(name)
+                logs[name] = (log.read_text() if log.exists()
+                              else "(already built)")
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -64,6 +74,7 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n{logs[name]}")
             else:
+                log_path(name).write_text(logs[name])
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

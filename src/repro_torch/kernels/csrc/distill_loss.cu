@@ -36,6 +36,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kernel_info.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -338,4 +340,26 @@ extern "C" int loss_grad_launch(const void* s, long long s_stride,
   }
 #undef GRAD_ARGS
   return (int)cudaGetLastError();
+}
+
+// The resources of one kernel's instance, into info (KERNEL_INFO_INTS
+// ints, kernel_info.cuh): which 0 = row_logsumexp, 1 = loss_terms, 2 =
+// loss_grad, in mode as the launch entries take it. Launches nothing;
+// returns the CUDA error of the query.
+extern "C" int distill_loss_query(int which, int mode, int* info) {
+  if (info == nullptr) return (int)cudaErrorInvalidValue;
+  if (which == 0) return kernel_info(row_logsumexp_kernel, THREADS, 0, info);
+  if (which == 1) {
+    if (mode == KLD) return kernel_info(loss_terms_kernel<KLD>, THREADS, 0, info);
+    if (mode == TVD) return kernel_info(loss_terms_kernel<TVD>, THREADS, 0, info);
+    if (mode == TVDPP)
+      return kernel_info(loss_terms_kernel<TVDPP>, THREADS, 0, info);
+  }
+  if (which == 2) {
+    if (mode == KLD) return kernel_info(loss_grad_kernel<KLD>, THREADS, 0, info);
+    if (mode == TVD) return kernel_info(loss_grad_kernel<TVD>, THREADS, 0, info);
+    if (mode == TVDPP)
+      return kernel_info(loss_grad_kernel<TVDPP>, THREADS, 0, info);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -74,6 +74,8 @@
 #include <atomic>
 #include <type_traits>
 
+#include "kernel_info.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -620,6 +622,7 @@ struct Args {
   float cap;
   cudaStream_t stream;
   int* clusters;   // set: ask how many clusters of splits blocks fit at once
+  int* info;       // set: report the instance's resources, launch nothing
 };
 
 // Launches the instance, or with a.clusters set, asks the card how many of
@@ -630,6 +633,7 @@ template <typename T, int HD, int ROUTE, int GT>
 int launch(const Args& a) {
   using SM = Smem<T, HD, ROUTE, GT>;
   auto kernel = flash_decode_kernel<T, HD, ROUTE, GT>;
+  if (a.info) return kernel_info(kernel, SM::THREADS, SM::BYTES, a.info);
   static std::atomic<unsigned long long> raised{0};   // a bit per device
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -724,6 +728,21 @@ extern "C" int flash_decode_max_clusters(int G, int hd, int dtype, int splits,
     return (int)cudaErrorInvalidValue;
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 16 * splits, 1,
                G, 16, splits, 0, 0.f, nullptr, clusters};
+  if (dtype == 0) return by_head_dim<float>(a, hd);
+  if (dtype == 1) return by_head_dim<__nv_bfloat16>(a, hd);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The resources of the instance flash_decode_launch picks for G query
+// rows a KV head at head dim hd and dtype, into info (KERNEL_INFO_INTS
+// ints, kernel_info.cuh). Launches nothing; returns the CUDA error of the
+// query.
+extern "C" int flash_decode_query(int G, int hd, int dtype, int* info) {
+  if (G < 1 || info == nullptr) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.G = G;
+  a.splits = 1;
+  a.info = info;
   if (dtype == 0) return by_head_dim<float>(a, hd);
   if (dtype == 1) return by_head_dim<__nv_bfloat16>(a, hd);
   return (int)cudaErrorInvalidValue;

@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_info.cuh"
+
 namespace {
 
 constexpr int SHARES = 4;              // warps along K
@@ -523,12 +525,15 @@ struct Args {
   void *out, *part, *cnt;
   int M, K, N, group, chunk, slices, wvec, xvec;
   cudaStream_t stream;
+  int* info;   // set: report the instance's resources, launch nothing
 };
 
 template <typename T, int BM, int BITS>
 int launch(const Args& a) {
   constexpr int bytes = Ring<T, BM, BITS>::BYTES;
   auto kernel = quant_matmul_kernel<T, BM, BITS>;
+  if (a.info)
+    return kernel_info(kernel, Shape<BM, BITS>::THREADS, bytes, a.info);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -581,6 +586,21 @@ extern "C" int quant_matmul_launch(const void* x, const void* q,
   const int xvec = K % (dtype == 0 ? 4 : 8) == 0 && (uintptr_t)x % 16 == 0;
   const Args a{x, q, scale, out, part, cnt, M, K, N, group, chunk, slices,
                wvec, xvec, (cudaStream_t)stream};
+  if (dtype == 0 && bits == 8) return by_rows<float, 8>(a);
+  if (dtype == 0 && bits == 4) return by_rows<float, 4>(a);
+  if (dtype == 1 && bits == 8) return by_rows<__nv_bfloat16, 8>(a);
+  if (dtype == 1 && bits == 4) return by_rows<__nv_bfloat16, 4>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The resources of the instance quant_matmul_launch picks for M rows of
+// x in dtype and bits-bit weights, into info (KERNEL_INFO_INTS ints,
+// kernel_info.cuh). Launches nothing; returns the CUDA error of the query.
+extern "C" int quant_matmul_query(int M, int bits, int dtype, int* info) {
+  if (M < 1 || info == nullptr) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.M = M;
+  a.info = info;
   if (dtype == 0 && bits == 8) return by_rows<float, 8>(a);
   if (dtype == 0 && bits == 4) return by_rows<float, 4>(a);
   if (dtype == 1 && bits == 8) return by_rows<__nv_bfloat16, 8>(a);

@@ -56,6 +56,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kernel_info.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;    // 4 warps per block
@@ -560,11 +562,23 @@ struct Args {
   int B, S, Hkv, N, G, chunk, splits, has_cap;
   float cap;
   cudaStream_t stream;
+  int* info;   // set: report the instances' resources, launch nothing
 };
 
 // RT 16 with bf16 at head dims 32-128: the tensor-core kernel
 template <typename T, int HD, int RT>
 int launch(const Args& a) {
+  if (a.info) {
+    int err;
+    if constexpr (RT == MMA_ROWS)
+      err = kernel_info(tree_attention_mma<HD>, MMA_THREADS,
+                        MmaSmem<HD>::BYTES, a.info);
+    else
+      err = kernel_info(tree_attention_kernel<T, HD, RT>, THREADS, 0, a.info);
+    if (err != 0 || a.splits == 1) return err;
+    return kernel_info(tree_attention_combine, COMBINE_THREADS, 0,
+                       a.info + KERNEL_INFO_INTS);
+  }
   const int rows = a.N * a.G;
   const dim3 grid(a.B * a.Hkv, (rows + RT - 1) / RT, a.splits);
   const float scale = 1.0f / sqrtf((float)HD);
@@ -642,6 +656,25 @@ extern "C" int tree_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, mask, out, part, B, S, Hkv, N, G, chunk, splits,
                has_cap, cap, (cudaStream_t)stream};
+  if (dtype == 0) return by_head_dim<float>(a, hd);
+  if (dtype == 1) return by_head_dim<__nv_bfloat16>(a, hd);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The resources of the instances tree_attention_launch picks for N*G
+// query rows at head dim hd and dtype (0 = float32, 1 = bfloat16), into
+// info: KERNEL_INFO_INTS ints for the attention kernel, then, with splits
+// > 1, as many for the combine kernel (kernel_info.cuh). Launches nothing;
+// returns the CUDA error of the query.
+extern "C" int tree_attention_query(int N, int G, int hd, int dtype,
+                                    int splits, int* info) {
+  if (N < 1 || G < 1 || splits < 1 || info == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.N = N;
+  a.G = G;
+  a.splits = splits;
+  a.info = info;
   if (dtype == 0) return by_head_dim<float>(a, hd);
   if (dtype == 1) return by_head_dim<__nv_bfloat16>(a, hd);
   return (int)cudaErrorInvalidValue;

@@ -18,8 +18,15 @@ import functools
 import torch
 
 from . import build
+from .launch import Launch, LaunchPlan
 
 MODES = {"kld": 0, "tvd": 1, "tvdpp": 2}
+THREADS = 256          # one block of THREADS a row, as the source
+#: the kernels by name: (the query's index, the instance's symbol, shape
+#: of the output given N and V)
+KERNELS = {"row_logsumexp": (0, "row_logsumexp_kernel", lambda N, V: (N,)),
+           "loss_terms": (1, "loss_terms_kernel<{}>", lambda N, V: (4, N)),
+           "loss_grad": (2, "loss_grad_kernel<{}>", lambda N, V: (N, V))}
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
@@ -35,6 +42,19 @@ def _lib():
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch_plan(kernel, N, V, mode="tvdpp") -> LaunchPlan:
+    """The launch of ``kernel`` (a ``KERNELS`` name) over (N, V) fp32
+    logits: one block a row walking all V, and its fp32 output."""
+    which, symbol, out_shape = KERNELS[kernel]
+    code = _mode(mode)
+    return LaunchPlan(
+        kernel, "distill_loss",
+        (Launch(symbol.format(code), (N, 1, 1), THREADS),),
+        query=(which, code), extent=V, chunk=V,
+        buffers=(("out", out_shape(N, V), torch.float32),),
+        rows=(("logits", V * 4),))
 
 
 def _check_logits(name, x, like=None):
@@ -91,7 +111,7 @@ def row_logsumexp(x):
     _check_logits("x", x)
     _check_device(x=x)
     N, V = x.shape
-    out = torch.empty((N,), dtype=torch.float32, device=x.device)
+    out = launch_plan("row_logsumexp", N, V).allocate(x.device)["out"]
     with torch.cuda.device(x.device):
         err = _lib().row_logsumexp_launch(x.data_ptr(), x.stride(0),
                                           out.data_ptr(), N, V, _stream(x))
@@ -111,7 +131,7 @@ def loss_terms(s, t, lse_s, lse_t, mu, inv_sigma, mode="tvdpp"):
         _check_scalar(name, v)
     _check_device(s=s, t=t, lse_s=lse_s, lse_t=lse_t, mu=mu,
                   inv_sigma=inv_sigma)
-    out = torch.empty((4, N), dtype=torch.float32, device=s.device)
+    out = launch_plan("loss_terms", N, V, mode).allocate(s.device)["out"]
     with torch.cuda.device(s.device):
         err = _lib().loss_terms_launch(
             s.data_ptr(), s.stride(0), t.data_ptr(), t.stride(0),
@@ -135,7 +155,7 @@ def loss_grad(s, t, lse_s, lse_t, c, g_rows, mu, inv_sigma, mode="tvdpp"):
         _check_scalar(name, v)
     _check_device(s=s, t=t, lse_s=lse_s, lse_t=lse_t, c=c, g_rows=g_rows,
                   mu=mu, inv_sigma=inv_sigma)
-    out = torch.empty((N, V), dtype=torch.float32, device=s.device)
+    out = launch_plan("loss_grad", N, V, mode).allocate(s.device)["out"]
     with torch.cuda.device(s.device):
         err = _lib().loss_grad_launch(
             s.data_ptr(), s.stride(0), t.data_ptr(), t.stride(0),

@@ -25,6 +25,7 @@ import functools
 import torch
 
 from . import build
+from .launch import CTYPE, Launch, LaunchPlan
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,6 +65,16 @@ def rows_per_block(G: int) -> int:
     return min(G, ROW_TILE)
 
 
+def group_tile(G: int, hd: int, dtype: torch.dtype) -> int:
+    """The instance's GT: ROW_TILE on the tensor cores, else the next power
+    of two >= min(G, ROW_TILE), as csrc/flash_decode.cu's by_route."""
+    if route(hd, dtype) == "mma":
+        return ROW_TILE
+    rows = rows_per_block(G)
+    return 1 if rows == 1 else 2 if rows == 2 else 4 if rows <= 4 else \
+        8 if rows <= 8 else 16
+
+
 def row_tiles(G: int) -> int:
     return -(-G // ROW_TILE)
 
@@ -100,6 +111,25 @@ def plan(B, Hkv, G, hd, S, itemsize, sms, clusters):
     return chunk, -(-S // chunk)
 
 
+def launch_plan(B, Hkv, G, hd, S, dtype, sms, clusters) -> LaunchPlan:
+    """The launch of ``flash_decode`` for q (B, Hkv, G, hd) and a cache of
+    S slots in ``dtype``: ``plan``'s split into one cluster of ``splits``
+    blocks per (batch, kv head, row tile), and the fp32 output."""
+    itemsize = dtype.itemsize
+    chunk, splits = plan(B, Hkv, G, hd, S, itemsize, sms, clusters)
+    mma = route(hd, dtype) == "mma"
+    gt = group_tile(G, hd, dtype)
+    symbol = f"flash_decode_kernel<{CTYPE[dtype]}, {hd}, {1 if mma else 0}, {gt}>"
+    launch = Launch(symbol, (splits * B * Hkv, row_tiles(G), 1),
+                    32 * warps(hd, itemsize), splits)
+    return LaunchPlan(
+        "flash_decode", "flash_decode", (launch,),
+        query=(min(G, ROW_TILE), hd, _DTYPE_CODES[dtype]), extent=S,
+        chunk=chunk, splits=splits, step=chunk_slots(hd, itemsize),
+        buffers=(("out", (B, Hkv, G, hd), torch.float32),),
+        rows=(("k", hd * itemsize), ("v", hd * itemsize)))
+
+
 @functools.lru_cache(maxsize=None)
 def _max_clusters(index, G, hd, dtype_code, splits) -> int:
     """Clusters of ``splits`` blocks of the kernel's instance for (G, hd,
@@ -117,12 +147,18 @@ def _max_clusters(index, G, hd, dtype_code, splits) -> int:
     return n.value
 
 
-def device_plan(B, Hkv, G, hd, S, dtype, index):
-    """``plan`` for a launch on device ``index``."""
+def device_clusters(index, G, hd, dtype):
+    """``clusters(splits)`` of ``plan`` for device ``index``."""
     def clusters(splits):
         return _max_clusters(index, min(G, ROW_TILE), hd, _DTYPE_CODES[dtype],
                              splits)
-    return plan(B, Hkv, G, hd, S, dtype.itemsize, _sm_count(index), clusters)
+    return clusters
+
+
+def device_plan(B, Hkv, G, hd, S, dtype, index):
+    """``plan`` for a launch on device ``index``."""
+    return plan(B, Hkv, G, hd, S, dtype.itemsize, _sm_count(index),
+                device_clusters(index, G, hd, dtype))
 
 
 def _check(q, k, v, mask):
@@ -146,7 +182,11 @@ def _check(q, k, v, mask):
             raise ValueError(f"{name} must lie on q's CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if name != "mask" and t.data_ptr() % 16:
+
+
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary "
                              "(the kernel reads it in 16-byte pieces)")
 
@@ -157,16 +197,19 @@ def flash_decode(q, k, v, mask, softcap=None):
     stream, by ``route(hd, dtype)``; raises if the inputs do not fit the
     kernel or the launch fails."""
     _check(q, k, v, mask)
+    _check_aligned(q=q, k=k, v=v)
     B, Hkv, G, hd = q.shape
     S = k.shape[1]
-    chunk, splits = device_plan(B, Hkv, G, hd, S, q.dtype, q.device.index or 0)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    index = q.device.index or 0
+    p = launch_plan(B, Hkv, G, hd, S, q.dtype, _sm_count(index),
+                    device_clusters(index, G, hd, q.dtype))
+    out = p.allocate(q.device)["out"]
     with torch.cuda.device(q.device):
         err = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), B, S, Hkv, G, hd, _DTYPE_CODES[q.dtype], chunk,
-            splits, softcap is not None,
-            0.0 if softcap is None else float(softcap),
+            out.data_ptr(), B, S, Hkv, G, hd, _DTYPE_CODES[q.dtype], p.chunk,
+            p.splits, softcap is not None,
+            0.0 if softcap is None else softcap,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed with CUDA error {err}")

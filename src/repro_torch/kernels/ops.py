@@ -18,9 +18,10 @@ from . import quant_matmul as qk
 from . import ref
 from . import tree_attention as tk
 
-LAUNCHES = {"tree_attention": 0, "flash_decode": 0, "row_logsumexp": 0,
-            "loss_terms": 0, "loss_grad": 0, "quant_matmul_int8": 0,
-            "quant_matmul_int4": 0}
+LAUNCHES = {  # repolint: ignore[RL003] the launch counters runs read and reset
+    "tree_attention": 0, "flash_decode": 0, "row_logsumexp": 0,
+    "loss_terms": 0, "loss_grad": 0, "quant_matmul_int8": 0,
+    "quant_matmul_int4": 0}
 
 
 def reset_launches() -> None:

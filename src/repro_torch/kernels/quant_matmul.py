@@ -23,6 +23,7 @@ import math
 import torch
 
 from . import build
+from .launch import CTYPE, Launch, LaunchPlan
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _Q_DTYPES = {8: torch.int8, 4: torch.uint8}
@@ -40,7 +41,7 @@ def _launcher():
     return fn
 
 
-_counters = {}
+_counters = {}  # repolint: ignore[RL003] one slice-counter buffer a device, left zeroed by every launch
 
 
 def _slice_counters(device, n):
@@ -65,6 +66,43 @@ def plan(K, N, bits, group=0):
     slices = max(1, min(want, units))
     chunk = -(-units // slices) * unit
     return chunk, -(-K // chunk)
+
+
+def rows_per_block(M: int, dtype: torch.dtype) -> int:
+    """Rows of x a block holds (csrc/quant_matmul.cu's by_rows): 8, 16, 32
+    or, for bf16 x above 32 rows, 64."""
+    if M <= 8:
+        return 8
+    if M <= 16:
+        return 16
+    return 32 if M <= 32 or dtype == torch.float32 else 64
+
+
+def launch_plan(M, K, N, bits, group, dtype) -> LaunchPlan:
+    """The launch of ``quant_matmul`` for x (M, K) in ``dtype`` and an
+    int8 or int4 (K, N) weight: the instance by rows, ``plan``'s K slices
+    as the grid's z (64-row tiles walk all slices in one block), and the
+    fp32 output with, where slices meet in device memory, their fp32
+    partial sums (the slice counters are a persistent buffer of their
+    own)."""
+    group = group if bits == 4 else 0
+    chunk, slices = plan(K, N, bits, group)
+    bm = rows_per_block(M, dtype)
+    threads = 512 if bm == 64 and bits == 8 else 256
+    bn = threads // 32 * 32 // 4            # the source's Shape::BN
+    walks = bm == 64
+    launch = Launch(f"quant_matmul_kernel<{CTYPE[dtype]}, {bm}, {bits}>",
+                    (-(-N // bn), -(-M // bm), 1 if walks else slices),
+                    threads)
+    buffers = [("out", (M, N), torch.float32)]
+    if slices > 1 and not walks:
+        buffers.append(("part", (slices, M, N), torch.float32))
+    return LaunchPlan(
+        f"quant_matmul_int{bits}", "quant_matmul", (launch,),
+        query=(M, bits, _DTYPE_CODES[dtype]), extent=K, chunk=chunk,
+        splits=slices, step=BK if bits == 8 else math.lcm(BK, group),
+        buffers=tuple(buffers),
+        rows=(("q", N), ("x", K * dtype.itemsize)))
 
 
 def _check(x, q, scale, bits, group):
@@ -105,21 +143,20 @@ def quant_matmul(x, q, scale, bits: int, group: int = 0):
     M, K = x.shape
     N = q.shape[1]
     group = group if bits == 4 else 0
-    chunk, slices = plan(K, N, bits, group)
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    part = cnt = None
-    if slices > 1 and not (x.dtype == torch.bfloat16 and M > 32):
+    p = launch_plan(M, K, N, bits, group, x.dtype)
+    bufs = p.allocate(x.device)
+    out, part, cnt = bufs["out"], bufs.get("part"), None
+    if part is not None:
         # partial sums of the slices; bf16 x above 32 rows runs 64-row
         # tiles, each walking all slices itself
-        part = torch.empty((slices, M, N), dtype=torch.float32, device=x.device)
         cnt = _slice_counters(x.device, -(-N // BN) * -(-M // MIN_ROWS))
     with torch.cuda.device(x.device):
         err = _launcher()(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
                           out.data_ptr(),
                           None if part is None else part.data_ptr(),
                           None if cnt is None else cnt.data_ptr(),
-                          M, K, N, bits, group, _DTYPE_CODES[x.dtype], chunk,
-                          slices, torch.cuda.current_stream().cuda_stream)
+                          M, K, N, bits, group, _DTYPE_CODES[x.dtype], p.chunk,
+                          p.splits, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed with CUDA error {err}")
     return out

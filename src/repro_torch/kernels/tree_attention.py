@@ -24,6 +24,7 @@ import functools
 import torch
 
 from . import build
+from .launch import CTYPE, Launch, LaunchPlan
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -32,6 +33,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # and slots a warp and step
 THREADS, UNROLL = 128, 4
 MMA_THREADS, MMA_ROWS, MMA_CHUNK = 256, 16, 16
+COMBINE_THREADS = 64
 # the split count aims at about this many blocks per SM (CUDA cores:
 # rounded up; tensor cores: rounded down, its blocks being heavier)
 BLOCKS_PER_SM = (4, 1)
@@ -91,6 +93,35 @@ def plan(B, Hkv, N, G, hd, S, itemsize, sms):
     return chunk, -(-S // chunk)
 
 
+def launch_plan(B, Hkv, N, G, hd, S, dtype, sms) -> LaunchPlan:
+    """The launches of ``tree_attention`` for q (B, Hkv, N, G, hd) and a
+    cache of S slots in ``dtype`` on a card of ``sms`` SMs: the attention
+    kernel's instance (as csrc/tree_attention.cu's by_rows picks it), and
+    with splits > 1 the combine kernel and its fp32 partial states."""
+    itemsize = dtype.itemsize
+    chunk, splits = plan(B, Hkv, N, G, hd, S, itemsize, sms)
+    rows = N * G
+    rt = rows_per_block(rows, hd, itemsize)
+    if on_tensor_cores(hd, itemsize):
+        main = Launch(f"tree_attention_mma<{hd}>",
+                      (B * Hkv, -(-rows // rt), splits), MMA_THREADS)
+    else:
+        main = Launch(f"tree_attention_kernel<{CTYPE[dtype]}, {hd}, {rt}>",
+                      (B * Hkv, -(-rows // rt), splits), THREADS)
+    launches = [main]
+    buffers = [("out", (B, Hkv, N, G, hd), torch.float32)]
+    if splits > 1:
+        launches.append(Launch("tree_attention_combine", (B * Hkv * rows, 1, 1),
+                               COMBINE_THREADS))
+        buffers.append(("part", (B * Hkv * rows, splits, hd + 2),
+                        torch.float32))
+    return LaunchPlan(
+        "tree_attention", "tree_attention", tuple(launches),
+        query=(N, G, hd, _DTYPE_CODES[dtype], splits), extent=S, chunk=chunk,
+        splits=splits, step=step_slots(hd, itemsize), buffers=tuple(buffers),
+        rows=(("k", hd * itemsize), ("v", hd * itemsize)))
+
+
 def _check(q, k, v, mask):
     if q.dim() != 5:
         raise ValueError(f"q must be (B, Hkv, N, G, hd), got {tuple(q.shape)}")
@@ -112,7 +143,11 @@ def _check(q, k, v, mask):
             raise ValueError(f"{name} must lie on q's CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if name != "mask" and t.data_ptr() % 16:
+
+
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary "
                              "(the kernel reads K/V in 16-byte loads)")
 
@@ -123,21 +158,19 @@ def tree_attention(q, k, v, mask, softcap=None):
     the current stream; raises if the inputs do not fit them or a launch
     fails."""
     _check(q, k, v, mask)
+    _check_aligned(q=q, k=k, v=v)
     B, Hkv, N, G, hd = q.shape
     S = k.shape[1]
-    chunk, splits = plan(B, Hkv, N, G, hd, S, q.element_size(),
-                         _sm_count(q.device.index or 0))
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    part = None
-    if splits > 1:
-        part = torch.empty((B * Hkv * N * G, splits, hd + 2),
-                           dtype=torch.float32, device=q.device)
+    p = launch_plan(B, Hkv, N, G, hd, S, q.dtype,
+                    _sm_count(q.device.index or 0))
+    bufs = p.allocate(q.device)
+    out, part = bufs["out"], bufs.get("part")
     with torch.cuda.device(q.device):
         err = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
-            B, S, Hkv, N, G, hd, _DTYPE_CODES[q.dtype], chunk, splits,
-            softcap is not None, 0.0 if softcap is None else float(softcap),
+            B, S, Hkv, N, G, hd, _DTYPE_CODES[q.dtype], p.chunk, p.splits,
+            softcap is not None, 0.0 if softcap is None else softcap,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"tree_attention launch failed with CUDA error {err}")

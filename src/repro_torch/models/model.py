@@ -28,7 +28,7 @@ from . import transformer as tfm
 LOSS_CHUNK = 512
 
 # boxes of the open ``capture_hidden`` scopes, innermost last
-_HIDDEN_TAPS: list = []
+_HIDDEN_TAPS: list = []  # repolint: ignore[RL003] the tap stack, scoped by the capture_hidden contextmanager
 
 
 @contextmanager

@@ -64,8 +64,8 @@ def capacity(num_tokens: int, cfg) -> int:
     """Slots per expert for a call over ``num_tokens`` tokens: the
     reference's ceil(N * k / E * cf), rounded up to a multiple of 8, at
     least 8."""
-    C = int(math.ceil(num_tokens * cfg.num_experts_per_tok / cfg.num_experts
-                      * cfg.moe_capacity_factor))
+    C = math.ceil(num_tokens * cfg.num_experts_per_tok / cfg.num_experts
+                  * cfg.moe_capacity_factor)
     return max(8, -(-C // 8) * 8)
 
 

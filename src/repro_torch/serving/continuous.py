@@ -123,6 +123,14 @@ class _Slot:
     out: List[np.ndarray] = field(default_factory=list)   # streamed tokens
 
 
+def fetch_to_host(t):
+    """The decode round's one device-to-host copy (``_decode_round``): the
+    lengths, committed windows, pending tokens and quality buffers in one
+    int64 tensor, as a numpy array. The one point of a round that waits for
+    the card; ``analysis.recompile`` counts its calls."""
+    return t.cpu().numpy()
+
+
 @dataclass
 class ContinuousEngine:
     target: Model
@@ -620,7 +628,7 @@ class ContinuousEngine:
             fetch += [q["tvd"].view(torch.int32).long(),
                       q["ent"].view(torch.int32).long(),
                       q["acc"].long(), q["drafted"].long()]
-        got = torch.cat(fetch, dim=1).cpu().numpy()
+        got = fetch_to_host(torch.cat(fetch, dim=1))
         S, K = self._span, self._qdepth
         lengths_h, win_h, pending_h = got[:, 0], got[:, 1:S + 1], got[:, S + 1]
         qual_h = None

@@ -94,11 +94,14 @@ def commit_tree_path(cache, lengths, path_nodes, n_acc, num_nodes):
     tree_slots = (lengths[:, None] + torch.arange(num_nodes, device=dev)[None]) % S
     canon = torch.where(offs <= n_acc[:, None], lengths[:, None] + offs,
                         -1).to(torch.int32)
+    # a tensor, not the number -1: a Python number written through tensor
+    # indices is copied from the host first, which waits for the card
+    invalid = canon.new_full((), -1)
     for layer in cache:
         for name in ("k", "v", "k_scale", "v_scale"):
             if name in layer:
                 layer[name][bidx, dst] = layer[name][bidx, src]
-        layer["pos"][bidx, tree_slots] = -1
+        layer["pos"][bidx, tree_slots] = invalid
         layer["pos"][bidx, dst] = canon
     return cache
 
@@ -129,11 +132,12 @@ def commit_tree_path_paged(cache, page_table, lengths, path_nodes, n_acc,
                               + torch.arange(num_nodes, device=dev)[None])
     canon = torch.where(offs <= n_acc[:, None], lengths[:, None] + offs,
                         -1).to(torch.int32)
+    invalid = canon.new_full((), -1)         # a tensor: see commit_tree_path
     for layer in cache:
         for name in ("k", "v", "k_scale", "v_scale"):
             if name in layer:
                 layer[name][dst_p, dst_o] = layer[name][src_p, src_o]
-        layer["page_pos"][tree_p, tree_o] = -1
+        layer["page_pos"][tree_p, tree_o] = invalid
         layer["page_pos"][dst_p, dst_o] = canon
     return cache
 
@@ -208,7 +212,7 @@ def tree_verify_phase(target: Model, sdc: SDConfig, spec: TreeSpec, t_params,
     t_cache = state["t_cache"]
     N = spec.num_nodes
     page_table = masked_page_table(state)
-    rope = lengths[:, None] + torch.as_tensor(spec.depths(), device=dev)[None]
+    rope = lengths[:, None] + spec.on(dev)["depths"][None]
     slot_pos = lengths[:, None] + torch.arange(N, device=dev)[None]
     amask = tree_attn_mask(spec, 0, N, lengths,
                            _cache_view_width(t_cache, page_table))
@@ -233,7 +237,7 @@ def tree_commit_phase(sdc: SDConfig, spec: TreeSpec, state, draft_out,
     q_node = verify_out["q_node"]
     B = pending.shape[0]
     dev = pending.device
-    children_tab = torch.as_tensor(spec.children(), device=dev)   # (N, kmax)
+    children_tab = spec.on(dev)["children"]                       # (N, kmax)
     bidx = torch.arange(B, device=dev)
     cur = torch.zeros((B,), dtype=torch.long, device=dev)
     n_acc = torch.zeros((B,), dtype=torch.long, device=dev)

@@ -10,8 +10,8 @@ at cache slot ``L + i`` (L = committed length) while its RoPE position is
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +23,9 @@ class TreeSpec:
     depth-2 tree with 7 nodes; (1,) * gamma = a chain of gamma drafts."""
 
     branching: Tuple[int, ...] = (2, 2)
+    # device copies of the tables, by device (``on``)
+    _tables: Dict[str, Dict[str, torch.Tensor]] = field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         if len(self.branching) < 1:
@@ -88,6 +91,21 @@ class TreeSpec:
             fill[p] += 1
         return ch
 
+    def on(self, device) -> Dict[str, torch.Tensor]:
+        """``depths``, ``children`` and ``ancestors`` as tensors on
+        ``device``, copied there once per device: a round reads them
+        without a host-to-device copy, which from pageable memory waits
+        for the card. Made under a ``FakeTensorMode`` they are fakes, so a
+        spec instance that an audit ran on fake tensors is not served
+        from."""
+        key = str(torch.device(device))
+        tabs = self._tables.get(key)
+        if tabs is None:
+            tabs = self._tables[key] = {
+                name: torch.as_tensor(getattr(self, name)(), device=device)
+                for name in ("depths", "children", "ancestors")}
+        return tabs
+
     def ancestors(self) -> np.ndarray:
         """(N, N) bool: ancestors[n, j] == j is on n's root path (incl. n)."""
         N = self.num_nodes
@@ -108,7 +126,7 @@ def tree_attn_mask(spec: TreeSpec, q_lo: int, q_hi: int, lengths, width: int):
     slot validity, which leaves exactly the committed prefix); inside it,
     node n may attend slot L+j iff j is an ancestor of n (self inclusive)."""
     dev = lengths.device
-    anc = torch.as_tensor(spec.ancestors()[q_lo:q_hi], device=dev)   # (T, N)
+    anc = spec.on(dev)["ancestors"][q_lo:q_hi]                     # (T, N)
     B, T, N = lengths.shape[0], q_hi - q_lo, spec.num_nodes
     cols = (lengths[:, None] + torch.arange(N, device=dev)[None]) % width
     m = torch.ones((B, T, width), dtype=torch.bool, device=dev)
