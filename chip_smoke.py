@@ -188,7 +188,8 @@ Phases, each printing one JSON line and then one line of its seconds:
      Chameleon-34B (qk-norm, d 8192, 64 heads on 8) at published widths,
      2 + 12 launches a tree round; (e) the serving CLI by tree at full
      width in subprocesses for Yi-9B and MusicGen-large (its single-
-     codebook variant: the note must be printed), launches checked;
+     codebook variant: the note must be printed), launches checked
+     (run in the wide CliPool, read after phase 13);
  24. Gemma-2-9B (after phase 23, once Yi is freed): (a) at full width (42
      layers alternating local_attn and attn, window 4,096, 16 heads on 8
      KV heads at hd 256, softcaps 50/30, scaled embeddings, V 256000;
@@ -206,7 +207,7 @@ Phases, each printing one JSON line and then one line of its seconds:
      long_context (8,256: the global layers window at 8,192) the static
      chain and tree and the continuous engine by chain and tree, each
      equal to static AR with the same long_context; (d) the serving CLI
-     by tree at full width, launches checked;
+     by tree at full width, launches checked (in the wide CliPool);
  25. mixture of experts (after phase 24, once Gemma is freed): (a)
      granite-moe-3b-a800m at full width (32 layers, d 1536, 24 heads on 8
      KV heads at hd 64, 40 experts top-8 of width 512, V 49155; 3.374B
@@ -232,7 +233,7 @@ Phases, each printing one JSON line and then one line of its seconds:
      TVD++ steps of granite's drafter against the frozen bf16 target
      through the distill kernels at V 49155, launches asserted, one step's
      kernel route against the plain route as in phase 7; (f) the serving
-     CLI by tree at full width, launches checked;
+     CLI by tree at full width, launches checked (in the wide CliPool);
  26. recurrent layers and hybrids (after phase 25): (a) zamba2-7b at
      full width (81 blocks: 70 Mamba2 of d_in 7168, 112 SSD heads of 64,
      N 64, chunk 128, and 11 applications of 2 shared attention+MLP sets,
@@ -256,8 +257,8 @@ Phases, each printing one JSON line and then one line of its seconds:
      steps of zamba2's drafter against the full-width frozen target at 2
      x 1024, V 32000, through the distill kernels, launches asserted, the
      kernel route against the plain route; (f) the serving CLI for
-     zamba2 by chain (exit 0, no kernel) and with --tree (exit 1 with the
-     reference's refusal, no traceback);
+     zamba2 by chain (exit 0, no kernel; in the wide CliPool) and with
+     --tree (exit 1 with the reference's refusal, no traceback);
  27. MusicGen-large with its four codebooks (after phase 26): (a) at
      published width (48 layers, d 2048, 32 heads of 64, d_ff 8192, V
      2048; 3,254,978,560 parameters, held and by param_count) in bf16 from
@@ -274,8 +275,8 @@ Phases, each printing one JSON line and then one line of its seconds:
      within 1% of the memory the real params and cache took, its counted
      FLOPs equal to FlopCounterMode on the real decode step; no kernel
      launched in (a) or (b). The CLIs start before phase 27, run beside
-     phases 27, 28, 5, 17, 20, 6 and 7 on the host's cores, and are read
-     after phase 7;
+     phases 27, 28, 7, 10 and 21 on the host's cores, and are read
+     after phase 21;
  28. the sharded step (after phase 27) on a world of one over NCCL, a (1,
      1) mesh named data, model (NCCL refuses two ranks on one card): (a)
      granite's MoE layer at published width in bf16 at cf 1.25 and E/k
@@ -285,7 +286,7 @@ Phases, each printing one JSON line and then one line of its seconds:
      the NCCL kernels the profiler sees, and ms with and without the mesh;
      (b) phase 25d's set-up served greedily by tree with the mesh
      installed, in both profiles: tokens equal to those without it, 2 + 4
-     x 3 tree_attention launches a round; (c) after phase 7, the dry-run
+     x 3 tree_attention launches a round; (c) after phase 21, the dry-run
      CLIs' collective term and one rank's peak, and the one-card sharded
      trace of (27a)'s decode step: its peak within 1% of the growth of
      max_memory_allocated over the real step from before its params.
@@ -303,9 +304,13 @@ Phases, each printing one JSON line and then one line of its seconds:
      static and dynamic shared memory, blocks an SM, spills) against
      Hopper's limits and the launch plans at the swept shapes, 0 errors,
      and ``python -m repro_torch.analysis --all --json`` in a subprocess
-     beside phases 27 to 7 (read after phase 7), exit 0.
-Phase 29 runs after phase 22, phases 23-28 after it; phases 10, 11, 13-15,
-18 and 21 run before phase 9. Then the ``kernels`` line, the
+     beside phases 27 to 21 (read after phase 21), exit 0.
+Phase 29 runs after phase 22, then phases 23-28, 7, 10, 21, 5, 17, 20, 8,
+11 and 13; then the checks of the CLI runs (14, 15, 18, 21, 23e, 24d, 25f
+and 26f), and phases 6 and 9 last. The CLI runs go in two pools of
+subprocesses (``CliPool``) beside the phases: the reduced config's from
+phase 28 to 21, those at full width from phase 5 to 13, within a budget of
+the card's memory. Then the ``kernels`` line, the
 card's name and power limit as nvidia-smi gives them, and last ``{"ok":
 true, "device": ...}``. Any failure raises and ends the run with a
 non-zero exit code and no result line.
@@ -323,6 +328,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -404,6 +410,8 @@ GEMMA_WINDOW = 4096              # gemma2_9b's sliding window
 GEMMA_VIEW = 272 * 16            # 4,352 slots: a row 256 slots past it
 GEMMA_SOFTCAP = 50.0
 GEMMA_TREE_DEPTHS = (0, 1, 1, 2, 2, 2, 2)      # tree (2, 2)
+# the tensor-core instance that bf16 at hd 256 (Gemma's verify) launches
+HD256_INSTANCE = "tree_attention_mma_ring<256>"
 # the paged cases' tolerance, relative to max |plain version|: the kernel
 # and the plain version both compute in fp32 from the same inputs (a
 # wholly masked split given any weight moves the output far more)
@@ -518,13 +526,14 @@ def check_paged_tree_cases(gen):
         scale = want.abs().max().item()
         ok = (bool(torch.isfinite(got).all())
               and err <= PAGED_TOL_REL * scale)
-        chunk, splits = tk.plan(B, Hkv, N, G, hd, S, q.element_size(),
-                                tk._sm_count(0))
+        plan = tk.launch_plan(B, Hkv, N, G, hd, S, dtype, tk._sm_count(0))
+        chunk, splits = plan.chunk, plan.splits
         results.append({"case": label, "B": B, "Hkv": Hkv, "N": N, "G": G,
                         "hd": hd, "S": S, "page": 16,
                         "dtype": str(dtype).split(".")[-1], "softcap": cap,
                         "window": window, "tensor_cores":
                             tk.on_tensor_cores(hd, q.element_size()),
+                        "instance": plan.launches[0].symbol,
                         "chunk": chunk, "splits": splits,
                         "wholly_masked_splits": masked_splits(mask, chunk),
                         "max_abs_want": scale, "max_abs_err": err,
@@ -536,7 +545,15 @@ def check_paged_tree_cases(gen):
     assert any(r["splits"] > 1 for r in results[:len(llama)]), results
     assert any(r["wholly_masked_splits"] > 0
                for r in results[len(llama):len(llama) + len(gemma)]), results
+    check_hd256_instance(results)
     return results
+
+
+def check_hd256_instance(results):
+    """Every bf16 case at hd 256 ran the tensor-core instance."""
+    hd256 = [r for r in results if r["hd"] == 256 and r["dtype"] == "bfloat16"]
+    assert hd256 and all(r["tensor_cores"] and r["instance"] == HD256_INSTANCE
+                         for r in hd256), hd256
 
 
 def tree_bound_ms(q, k, v, mask):
@@ -577,8 +594,12 @@ def phase2_kernels():
     cache width (201 = 128 + 64 + 7 + 2) and a tiled one (1024), bf16 and
     f32, once with softcap; every other head dim the reference takes (the
     reduced config's 32, the pipeline drafter's 16, gemma2_9b's 256) and a
-    tree of 13 nodes at G 3. A second input set run twice must give equal
-    outputs (the split combine is in a fixed order). Then the continuous
+    tree of 13 nodes at G 3; at hd 256 in bf16 the tensor-core instance
+    (``HD256_INSTANCE``, asserted for every such case) at two row tiles, at
+    G 1 and at S 197, with more than one split at Gemma's verify. A second
+    input set run twice must give equal outputs (the split combine is in a
+    fixed order; hd 128 and 256 on the tensor cores, fp32 on the CUDA
+    cores). Then the continuous
     path's paged views with whole batches of fully masked rows, and the
     shapes of the registry's served archs (Yi-9B's verify at G 8, S 201 and
     1024, and its drafter levels at G 2; Chameleon's verify at G 8;
@@ -619,6 +640,13 @@ def phase2_kernels():
           for dt in (bf, f32)],
         *[("gemma-drafter-level", 4, 4, N, 2, 128, 201, dt, GEMMA_SOFTCAP)
           for N, dt in ((1, bf), (2, bf), (4, bf), (4, f32))],
+        # the edges of the tensor-core instance at hd 256: two row tiles
+        # (N 13, G 2: 26 rows), 7 of a tile's 16 rows (N 7, G 1), and an S
+        # that is no multiple of its 64-slot step
+        *[(label, 4, 8, N, G, 256, S, bf, GEMMA_SOFTCAP)
+          for label, N, G, S in (("hd256-N13-G2", 13, 2, 201),
+                                 ("hd256-N7-G1", 7, 1, 201),
+                                 ("hd256-S197", 7, 2, 197))],
         # the MoE archs (phase 25): granite-moe-3b-a800m's verify (24 heads
         # on 8, G 3, hd 64) and drafter levels (8 on 4, G 2), grok-1-314b's
         # verify (48 on 8, G 6, hd 128, softcap 30) and drafter levels (16
@@ -639,18 +667,26 @@ def phase2_kernels():
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         ok = bool(torch.isfinite(got).all()) and err <= TOL[dtype]
+        plan = tk.launch_plan(B, Hkv, N, G, hd, S, dtype, tk._sm_count(0))
         results.append({"case": label, "B": B, "Hkv": Hkv, "N": N, "G": G,
                         "hd": hd, "S": S, "dtype": str(dtype).split(".")[-1],
-                        "softcap": cap, "max_abs_err": err,
+                        "softcap": cap, "tensor_cores":
+                            tk.on_tensor_cores(hd, q.element_size()),
+                        "instance": plan.launches[0].symbol,
+                        "splits": plan.splits, "max_abs_err": err,
                         "tol": TOL[dtype], "ok": ok})
         if not ok:
             emit({"phase": 2, "cases": results})
             raise AssertionError(f"tree_attention disagrees with its plain "
                                  f"version: {results[-1]}")
+    check_hd256_instance(results)
+    assert any(r["splits"] > 1 for r in results
+               if r["case"] == "gemma-verify" and r["dtype"] == "bfloat16")
     # a second input set, run twice, on shapes whose slots are split
-    # across blocks (tensor cores and CUDA cores)
+    # across blocks (tensor cores at hd 128 and 256, CUDA cores)
     deterministic = True
     for B, Hkv, N, G, hd, S, dtype in ((4, 8, 2, 1, 128, 1024, bf),
+                                        (4, 8, 7, 2, 256, GEMMA_VIEW, bf),
                                         (4, 32, 7, 1, 128, 1024, f32)):
         second = tree_inputs(gen, B, Hkv, N, G, hd, S, dtype)
         assert tk.plan(B, Hkv, N, G, hd, S, second[0].element_size(),
@@ -728,7 +764,8 @@ def phase2_kernels():
                                    "bound_by": yi["bound_by"],
                                    "library_ms": yi["device_ms"]["library"]},
                                "gemma": {
-                                   k: {"ms": t["device_ms"]["kernel"],
+                                   k: {"instance": t["instance"],
+                                       "ms": t["device_ms"]["kernel"],
                                        "plain_ms": t["device_ms"]["plain"],
                                        "bound_ms": t["bound_ms"],
                                        "bound_by": t["bound_by"],
@@ -856,8 +893,9 @@ def time_tree(gen, B, Hkv, N, G, hd, S, softcap=None, make=None, iters=200):
     dev["kernel_repeat"] = graph_ms(rotate(fns["kernel"]), iters)
     eager = {name: cuda_ms(rotate(fn), iters=200) for name, fn in fns.items()}
     bound_ms, bound_by = tree_bound_ms(*sets[0])
-    chunk, splits = tk.plan(B, Hkv, N, G, hd, S, 2, tk._sm_count(0))
-    return {"splits": splits, "chunk": chunk, "device_ms": dev,
+    plan = tk.launch_plan(B, Hkv, N, G, hd, S, torch.bfloat16, tk._sm_count(0))
+    return {"instance": plan.launches[0].symbol, "splits": plan.splits,
+            "chunk": plan.chunk, "device_ms": dev,
             "eager_call_ms": eager, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_max_abs_err": lib_err}
 
@@ -967,6 +1005,10 @@ def kernel_breakdown(prof, rounds, wall_ms_per_round):
             "wall_ms_per_round_unprofiled": wall_ms_per_round,
             "device_busy_share": per_round_ms / wall_ms_per_round,
             "share_tree_attention": share(lambda k: "tree_attention" in k),
+            # its instances at hd 256 (Gemma-2-9B's verify pass)
+            "share_tree_attention_hd256": share(
+                lambda k: "tree_attention" in k
+                and ("<256>" in k or ", 256," in k)),
             "share_quant_matmul": share(lambda k: "quant_matmul" in k),
             # cuBLAS matmuls: nvjet_* (its JIT kernels), *gemm*, *xmma*
             "share_matmul": share(lambda k: any(w in k.lower() for w in
@@ -2374,56 +2416,103 @@ def phase13_pipeline(smi):
 STEP_LOSS = re.compile(r"^step (\d+): .*'loss': ([^,}]+)", re.M)
 
 
-def run_side_by_side(cmds, timeout=600):
-    """Each of {name: command} in a subprocess, all at once (the card holds
-    their models together and the host has cores for each): {name:
-    (``CompletedProcess``, seconds to its exit)}; one past ``timeout``
-    seconds is killed."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    running, done = {}, {}
-    for name, cmd in cmds.items():
-        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-        running[name] = (cmd, subprocess.Popen(
-            cmd, stdout=out, stderr=err, text=True, cwd=ROOT, env=env),
-            out, err, time.perf_counter())
-    while running:
-        for name in list(running):
-            cmd, proc, out, err, t0 = running[name]
-            if proc.poll() is None and time.perf_counter() - t0 < timeout:
-                continue
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            out.seek(0)
-            err.seek(0)
-            done[name] = (subprocess.CompletedProcess(
-                cmd, proc.returncode, out.read(), err.read()),
-                time.perf_counter() - t0)
-            out.close()
-            err.close()
-            del running[name]
-        time.sleep(0.2)
-    return done
+class CliPool:
+    """The CLI runs of the phases in subprocesses, in the background while
+    the script goes on with other phases: ``jobs`` is {name: (command, GB
+    of the card it may take, the job it must follow or None)}. At most
+    ``slots`` run at once, their GB within ``budget_gb`` (a job alone may
+    exceed it); one past 600 s is killed. ``wait(names)``
+    gives {name: (``CompletedProcess``, seconds from its start to its
+    exit)}."""
+
+    TIMEOUT_S = 600
+
+    def __init__(self, jobs, slots, budget_gb):
+        self.jobs, self.slots, self.budget_gb = dict(jobs), slots, budget_gb
+        self.running, self.done = {}, {}
+        self.stopped = False
+        self.lock = threading.Lock()
+        atexit.register(self.stop)
+        self.thread = threading.Thread(target=self._schedule, daemon=True)
+        self.thread.start()
+
+    def _schedule(self):
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        pending = list(self.jobs)
+        while (pending or self.running) and not self.stopped:
+            for name in list(self.running):
+                cmd, proc, out, err, t0 = self.running[name]
+                if proc.poll() is None and time.perf_counter() - t0 < self.TIMEOUT_S:
+                    continue
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.seek(0)
+                err.seek(0)
+                result = (subprocess.CompletedProcess(
+                    cmd, proc.returncode, out.read(), err.read()),
+                    time.perf_counter() - t0)
+                out.close()
+                err.close()
+                with self.lock:
+                    del self.running[name]
+                    self.done[name] = result
+            for name in list(pending):
+                cmd, gb, after = self.jobs[name]
+                used = sum(self.jobs[n][1] for n in self.running)
+                if (after is not None and after not in self.done
+                        or len(self.running) >= self.slots
+                        or self.running and used + gb > self.budget_gb):
+                    continue
+                out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+                with self.lock:
+                    self.running[name] = (cmd, subprocess.Popen(
+                        cmd, stdout=out, stderr=err, text=True, cwd=ROOT,
+                        env=env), out, err, time.perf_counter())
+                pending.remove(name)
+            time.sleep(0.2)
+
+    def wait(self, names):
+        while not all(n in self.done for n in names):
+            if not self.thread.is_alive():
+                assert all(n in self.done for n in names), (
+                    "the CLI pool stopped", names, sorted(self.done))
+            time.sleep(0.2)
+        return {n: self.done[n] for n in names}
+
+    def stop(self):
+        """Kill what still runs (a phase that fails first must not leave
+        the pool's processes behind)."""
+        self.stopped = True
+        with self.lock:
+            for _, proc, *_ in self.running.values():
+                if proc.poll() is None:
+                    proc.kill()
 
 
-def phase14_train_cli(smi):
-    """The training CLI in subprocesses: --phase pretrain (the loss must
-    fall below its first logged value) and --phase distill --loss tvdpp
-    (the TVD++ surrogate is 0 up to rounding: finite), 10 steps each, side
-    by side."""
-    runs = {}
-    cmds = {name: [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                   "llama2-7b-chat", "--reduced", "--steps", "10", *extra]
+def train_cli_jobs():
+    """Phase 14's CLI runs for a ``CliPool``: --phase pretrain and --phase
+    distill --loss tvdpp, 10 steps each of the reduced config."""
+    return {f"14-{name}": ([sys.executable, "-m", "repro_torch.launch.train",
+                           "--arch", "llama2-7b-chat", "--reduced", "--steps",
+                           "10", *extra], 2, None)
             for name, extra in (
                 ("pretrain", ["--phase", "pretrain", "--save",
                               str(ROOT / "build" / "train_cli.npz")]),
                 ("distill", ["--phase", "distill", "--loss", "tvdpp"]))}
-    for name, (proc, s) in run_side_by_side(cmds).items():
+
+
+def phase14_train_cli(smi, pool):
+    """The training CLI in subprocesses (``train_cli_jobs``): the pretrain
+    loss must fall below its first logged value, and the TVD++ surrogate
+    is 0 up to rounding: finite."""
+    runs = {}
+    for name, (proc, s) in pool.wait(list(train_cli_jobs())).items():
         losses = [float(x) for _, x in STEP_LOSS.findall(proc.stdout)]
-        runs[name] = {"cmd": " ".join(proc.args[1:]), "rc": proc.returncode,
-                      "s": s, "loss": losses,
-                      "tail": proc.stdout.strip().splitlines()[-2:],
-                      "stderr": proc.stderr.strip().splitlines()[-3:]}
+        runs[name[3:]] = {"cmd": " ".join(proc.args[1:]), "rc": proc.returncode,
+                          "s": s, "loss": losses,
+                          "tail": proc.stdout.strip().splitlines()[-2:],
+                          "stderr": proc.stderr.strip().splitlines()[-3:]}
     emit({"phase": 14, "runs": runs, "nvidia_smi": smi})
     for name, r in runs.items():
         assert r["rc"] == 0 and len(r["loss"]) == 5, (name, r)
@@ -2435,20 +2524,21 @@ def phase14_train_cli(smi):
 LAUNCH_LINE = re.compile(r"^kernel launches: (\{.*\})$", re.M)
 
 
-def phase15_reduced_tree_cli(smi):
+REDUCED_TREE_CLI = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                    "llama2-7b-chat", "--reduced", "--tree", "--tree-depth",
+                    "2", "--tree-branch", "2", "--temperature", "0.7"]
+
+
+def phase15_reduced_tree_cli(smi, pool):
     """Tree serving of the reduced config (head dim 32) through the serving
-    CLI in a subprocess: it must exit 0 with tree_attention launches
-    counted (its printed counts) and no other kernel launched."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           "llama2-7b-chat", "--reduced", "--tree", "--tree-depth", "2",
-           "--tree-branch", "2", "--temperature", "0.7"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                          cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    CLI in a subprocess (job "15" of a ``CliPool``): it must exit 0 with
+    tree_attention launches counted (its printed counts) and no other
+    kernel launched."""
+    proc, s = pool.wait(["15"])["15"]
     found = LAUNCH_LINE.search(proc.stdout)
     launches = json.loads(found[1]) if found else None
-    run = {"cmd": " ".join(cmd[1:]), "rc": proc.returncode,
-           "s": time.perf_counter() - t0, "launches": launches,
+    run = {"cmd": " ".join(REDUCED_TREE_CLI[1:]), "rc": proc.returncode,
+           "s": s, "launches": launches,
            "stdout": proc.stdout.strip().splitlines()[-6:],
            "stderr": proc.stderr.strip().splitlines()[-3:]}
     emit({"phase": 15, "head_dim": 32, "run": run, "nvidia_smi": smi})
@@ -2788,9 +2878,29 @@ def check_obs_cli(d, stdout):
                        if any(k in ln for k in OBS_REPORT_LINES)]}
 
 
-def phase18_continuous_cli(smi):
+CONT_CLI_BASE = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                 "llama2-7b-chat", "--continuous", "--traffic-mix", CONT_MIX,
+                 "--requests", str(SHORT_N), "--arrival-rate", str(CONT_RATE),
+                 "--max-batch", str(SHORT_BATCH), "--temperature", "0.7"]
+# (name, flags, kernels it must launch, GB of the card for a CliPool)
+CONT_CLI_VARIANTS = (("tree_int8", ["--tree", "--prefix-cache", "--quant-weights",
+                                    "int8", "--quant-target", "--quant-kv"],
+                      {"tree_attention", "quant_matmul_int8"}, 38),
+                     ("chain_bf16", [], set(), 18))
+
+
+def continuous_cli_jobs(d):
+    """Phase 18's CLI runs for a ``CliPool``, the first's files under d."""
+    return {f"18-{name}": (CONT_CLI_BASE + extra
+                           + (obs_cli_flags(d) if name == "tree_int8" else []),
+                           gb, None)
+            for name, extra, _, gb in CONT_CLI_VARIANTS}
+
+
+def phase18_continuous_cli(smi, pool, tmp):
     """The full-width pair through the serving CLI's --continuous branch in
-    subprocesses, on the chat mix (8 requests at 4/s through 4 slots,
+    subprocesses (``continuous_cli_jobs``, files under the directory
+    ``tmp``), on the chat mix (8 requests at 4/s through 4 slots,
     temperature 0.7):
     tree with the prefix cache, int8 weights on both models and int8 KV
     pools, with every observability flag; then chain in bf16. Each must
@@ -2798,52 +2908,42 @@ def phase18_continuous_cli(smi):
     kernel launches:
     tree attention (44 a round) and the int8 matmul for the first, no
     kernel for the chain; the first's files and reports are checked."""
-    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-            "llama2-7b-chat", "--continuous", "--traffic-mix", CONT_MIX,
-            "--requests", str(SHORT_N), "--arrival-rate", str(CONT_RATE),
-            "--max-batch", str(SHORT_BATCH), "--temperature", "0.7"]
+    d = Path(tmp.name)
     runs = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        d = Path(tmp)
-        variants = (("tree_int8", ["--tree", "--prefix-cache", "--quant-weights",
-                                   "int8", "--quant-target", "--quant-kv",
-                                   *obs_cli_flags(d)],
-                     {"tree_attention", "quant_matmul_int8"}),
-                    ("chain_bf16", [], set()))
-        done = run_side_by_side({name: base + extra
-                                 for name, extra, _ in variants})
-        for name, extra, used in variants:
-            proc, s = done[name]
-            found = LAUNCH_LINE.search(proc.stdout)
-            served, rounds = CONT_LINE.search(proc.stdout), ROUNDS_FIELD.search(
-                proc.stdout)
-            queued = MAX_QUEUE_FIELD.search(proc.stdout)
-            run = runs[name] = {
-                "cmd": " ".join(base[1:] + extra), "rc": proc.returncode,
-                "s": s,
-                "launches": json.loads(found[1]) if found else None,
-                "requests": int(served[1]) if served else None,
-                "rounds": int(rounds[1]) if rounds else None,
-                "max_queue": int(queued[1]) if queued else None,
-                "stdout": proc.stdout.strip().splitlines()[-10:],
-                "stderr": proc.stderr.strip().splitlines()[-3:]}
-            ok = (proc.returncode == 0 and run["launches"] is not None
-                  and run["requests"] == SHORT_N
-                  and (run["max_queue"] or 0) >= 1
-                  and all((n > 0) == (k in used)
-                          for k, n in run["launches"].items()))
-            if ok and "tree_attention" in used:
-                ok = run["rounds"] is not None and (
-                    run["launches"]["tree_attention"] == 44 * run["rounds"])
-            if ok and name == "tree_int8":
-                try:
-                    run["observability"] = check_obs_cli(d, proc.stdout)
-                except (AssertionError, OSError, ValueError, KeyError) as e:
-                    run["observability"] = f"{type(e).__name__}: {e}"
-                    ok = False
-            if not ok:
-                emit({"phase": 18, "runs": runs, "nvidia_smi": smi})
-                raise AssertionError(f"continuous CLI run {name} failed: {run}")
+    done = pool.wait(list(continuous_cli_jobs(d)))
+    for name, _, used, _ in CONT_CLI_VARIANTS:
+        proc, s = done[f"18-{name}"]
+        found = LAUNCH_LINE.search(proc.stdout)
+        served, rounds = CONT_LINE.search(proc.stdout), ROUNDS_FIELD.search(
+            proc.stdout)
+        queued = MAX_QUEUE_FIELD.search(proc.stdout)
+        run = runs[name] = {
+            "cmd": " ".join(proc.args[1:]), "rc": proc.returncode,
+            "s": s,
+            "launches": json.loads(found[1]) if found else None,
+            "requests": int(served[1]) if served else None,
+            "rounds": int(rounds[1]) if rounds else None,
+            "max_queue": int(queued[1]) if queued else None,
+            "stdout": proc.stdout.strip().splitlines()[-10:],
+            "stderr": proc.stderr.strip().splitlines()[-3:]}
+        ok = (proc.returncode == 0 and run["launches"] is not None
+              and run["requests"] == SHORT_N
+              and (run["max_queue"] or 0) >= 1
+              and all((n > 0) == (k in used)
+                      for k, n in run["launches"].items()))
+        if ok and "tree_attention" in used:
+            ok = run["rounds"] is not None and (
+                run["launches"]["tree_attention"] == 44 * run["rounds"])
+        if ok and name == "tree_int8":
+            try:
+                run["observability"] = check_obs_cli(d, proc.stdout)
+            except (AssertionError, OSError, ValueError, KeyError) as e:
+                run["observability"] = f"{type(e).__name__}: {e}"
+                ok = False
+        if not ok:
+            emit({"phase": 18, "runs": runs, "nvidia_smi": smi})
+            raise AssertionError(f"continuous CLI run {name} failed: {run}")
+    tmp.cleanup()
     emit({"phase": 18, "runs": runs, "nvidia_smi": smi})
 
 
@@ -3039,8 +3139,8 @@ HEAD_TRAIN_B, HEAD_TRAIN_S, HEAD_TRAIN_STEPS = 4, 1024, 2
 
 def phase21_head_training(smi):
     """Head distillation at full width against the frozen bf16 target on
-    its own datagen responses, a head checkpoint round trip served by tree,
-    then the head flags of the training and serving CLIs."""
+    its own datagen responses, and a head checkpoint round trip served by
+    tree (the head flags of the CLIs: ``head_cli_jobs``)."""
     import itertools
     from repro_torch.checkpoint.io import load_draft_heads, save_draft_heads
     from repro_torch.configs import get_config
@@ -3121,14 +3221,12 @@ def phase21_head_training(smi):
               "tree_attention": ops.LAUNCHES["tree_attention"]}
     del target, t_params, trained, params, loaded
     torch.cuda.empty_cache()
-    cli = head_clis()
     emit({"phase": 21, "arch": cfg.name, "target_dtype": cfg.dtype,
           "head_param_dtype": "float32",
           "datagen": {"seeds": 16, "prompt_len": 128, "max_new": 64,
                       "temperatures": [0.0, 0.7], "rows": int(data.shape[0]),
                       "s": datagen_s},
-          "training": runs, "checkpoint_tree_pass": served, "cli": cli,
-          "nvidia_smi": smi})
+          "training": runs, "checkpoint_tree_pass": served, "nvidia_smi": smi})
 
 
 def _leaves(tree):
@@ -3139,38 +3237,41 @@ def _leaves(tree):
 ROUNDS_FIELD = re.compile(r"\brounds=(\d+)")
 
 
-def head_clis():
-    """The training CLI distills EAGLE heads of the reduced config and saves
-    them; the serving CLI serves that checkpoint by tree; the continuous
-    serving CLI serves the chat mix at full width by tree with EAGLE heads.
-    Each must exit 0; tree_attention launches are checked against the
-    target's layers (per round where the CLI prints its rounds), and no
-    other kernel may launch."""
+def head_cli_jobs():
+    """Phase 21's CLI runs for a ``CliPool``, with the target layers a
+    round of each serving run (None for the training): the training CLI
+    distills EAGLE heads of the reduced config and saves them; the serving
+    CLI serves that checkpoint by tree; the continuous serving CLI serves
+    the chat mix at full width by tree with EAGLE heads."""
     ckpt = str(ROOT / "build" / "heads_cli.npz")
     mod = [sys.executable, "-m"]
-    runs = {
-        "train": (mod + ["repro_torch.launch.train", "--arch", "llama2-7b-chat",
-                         "--reduced", "--draft-head", "eagle", "--steps", "10",
-                         "--save", ckpt], None),
-        "serve_tree": (mod + ["repro_torch.launch.serve", "--arch",
-                              "llama2-7b-chat", "--reduced", "--draft-head",
-                              "eagle", "--head-ckpt", ckpt, "--tree",
-                              "--temperature", "0.7"], 2),
-        "serve_continuous_tree": (
+    return {
+        "21-train": (mod + ["repro_torch.launch.train", "--arch",
+                            "llama2-7b-chat", "--reduced", "--draft-head",
+                            "eagle", "--steps", "10", "--save", ckpt],
+                     2, None, None),
+        "21-serve_tree": (mod + ["repro_torch.launch.serve", "--arch",
+                                 "llama2-7b-chat", "--reduced", "--draft-head",
+                                 "eagle", "--head-ckpt", ckpt, "--tree",
+                                 "--temperature", "0.7"], 2, "21-train", 2),
+        "21-serve_continuous_tree": (
             mod + ["repro_torch.launch.serve", "--arch", "llama2-7b-chat",
                    "--continuous", "--tree", "--draft-head", "eagle",
                    "--traffic-mix", CONT_MIX, "--requests", str(SHORT_N),
                    "--arrival-rate", str(CONT_RATE), "--max-batch",
-                   str(SHORT_BATCH), "--temperature", "0.7"], 32),
+                   str(SHORT_BATCH), "--temperature", "0.7"], 18, None, 32),
     }
+
+
+def check_head_clis(smi, done):
+    """Phase 21's CLI runs (``head_cli_jobs``), {name: (``CompletedProcess``,
+    seconds)} from their pools: each must exit 0; tree_attention launches
+    are checked against the target's layers (per round where the CLI
+    prints its rounds), and no other kernel may launch."""
     out = {}
-    # the continuous run reads no checkpoint: it runs beside the training
-    done = run_side_by_side({n: runs[n][0] for n in ("train",
-                                                     "serve_continuous_tree")})
-    for name, (cmd, layers) in runs.items():
-        if name not in done:
-            done.update(run_side_by_side({name: cmd}))
+    for name, (cmd, _, _, layers) in head_cli_jobs().items():
         proc, s = done[name]
+        name = name[3:]
         found = LAUNCH_LINE.search(proc.stdout)
         rounds = ROUNDS_FIELD.search(proc.stdout)
         run = out[name] = {
@@ -3200,7 +3301,7 @@ def head_clis():
         if not ok:
             emit({"phase": 21, "cli": out})
             raise AssertionError(f"head CLI run {name} failed: {run}")
-    return out
+    emit({"phase": 21, "cli": out, "nvidia_smi": smi})
 
 
 # ------------------------------------------------ observability (22)
@@ -3414,23 +3515,35 @@ GEMMA = "gemma2-9b"
 NOTE = "note: serving single-codebook variant of musicgen-large"
 
 
-def arch_clis(runs=ARCH_CLI_RUNS, phase="23e"):
-    """The serving CLI by tree at full width in subprocesses (4 requests,
-    16 + 32 tokens, temperature 0.7), for each (arch, note printed) of
-    ``runs``: Yi-9B, and MusicGen-large, which must print the reference's
-    single-codebook note. Each must exit 0 with tree_attention launched
-    (target + drafter layers * 3) times a round of its printed rounds, and
-    no other kernel."""
+# GB of the card a serving CLI run at full width may take (its models, its
+# caches and the allocator's slack), for a CliPool
+CLI_GB = {"yi-9b": 21, "musicgen-large": 9, "gemma2-9b": 27,
+          "granite-moe-3b-a800m": 9, "zamba2-7b": 19}
+
+
+def arch_cli_jobs(runs=ARCH_CLI_RUNS, phase="23e"):
+    """The serving CLI by tree at full width for each (arch, note) of
+    ``runs``, as jobs of a ``CliPool``."""
+    return {f"{phase}-{arch}": (
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--tree", "--temperature", "0.7", "--requests", "4"],
+        CLI_GB[arch], None) for arch, _ in runs}
+
+
+def check_arch_clis(smi, pool, runs=ARCH_CLI_RUNS, phase="23e"):
+    """The serving CLI by tree at full width in subprocesses
+    (``arch_cli_jobs``; 4 requests, 16 + 32 tokens, temperature 0.7), for
+    each (arch, note printed) of ``runs``: Yi-9B, and MusicGen-large,
+    which must print the reference's single-codebook note. Each must exit
+    0 with tree_attention launched (target + drafter layers * 3) times a
+    round of its printed rounds, and no other kernel."""
     from repro_torch.configs import get_config
     out = {}
-    done = run_side_by_side({
-        arch: [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-               arch, "--tree", "--temperature", "0.7", "--requests", "4"]
-        for arch, _ in runs})
+    done = pool.wait(list(arch_cli_jobs(runs, phase)))
     for arch, note in runs:
         cfg = get_config(arch)
         per_round = cfg.num_layers + cfg.drafter().num_layers * 3
-        proc, s = done[arch]
+        proc, s = done[f"{phase}-{arch}"]
         cmd = proc.args
         found = LAUNCH_LINE.search(proc.stdout)
         rounds = ROUNDS_FIELD.search(proc.stdout)
@@ -3450,7 +3563,7 @@ def arch_clis(runs=ARCH_CLI_RUNS, phase="23e"):
         if not ok:
             emit({"phase": phase, "cli": out})
             raise AssertionError(f"serving CLI run of {arch} failed: {run}")
-    return out
+    emit({"phase": phase, "cli": out, "nvidia_smi": smi})
 
 
 def phase23_archs(smi):
@@ -3462,9 +3575,10 @@ def phase23_archs(smi):
     tree with the prefix cache; (c) greedy exactness with 2 float32 target layers, chain and
     tree, static and continuous; (d) greedy exactness by tree for
     Phi-4-mini, Minitron-4B and Chameleon-34B (qk-norm) at published widths
-    with 2 float32 target layers; (e) the serving CLI by tree at full
-    width for Yi-9B and MusicGen-large. Returns the tree_attention launches
-    of (a) and (b)."""
+    with 2 float32 target layers; (e), the serving CLI by tree at full
+    width for Yi-9B and MusicGen-large, runs in a CliPool
+    (``arch_cli_jobs``, ``check_arch_clis``). Returns the tree_attention
+    launches of (a) and (b)."""
     from repro_torch.core.speculative import SDConfig
     from repro_torch.launch import serve
     from repro_torch.spectree.tree import TreeSpec
@@ -3506,7 +3620,6 @@ def phase23_archs(smi):
         results[arch] = out
         emit({"phase": "23c" if arch == "yi-9b" else "23d", **out})
         assert ok, ("greedy tokens differ, or tree launches are off", out)
-    emit({"phase": "23e", "cli": arch_clis(), "nvidia_smi": smi})
     return tree["tree_attention"] + cont["launches"]["tree_attention"]
 
 
@@ -3655,9 +3768,9 @@ def phase24_gemma(smi):
     42 + 4 * 3 = 54 tree_attention launches a tree round and no other
     kernel; (b) the continuous engine past the window
     (``gemma_past_the_window``); (c) greedy exactness within and past the
-    window and with long_context (``gemma_greedy_exactness``); (d) the
-    serving CLI by tree at full width. Returns the tree_attention launches
-    of (a) and (b)."""
+    window and with long_context (``gemma_greedy_exactness``); (d), the
+    serving CLI by tree at full width, runs in a CliPool. Returns the
+    tree_attention launches of (a) and (b)."""
     from repro_torch.launch import serve
     from repro_torch.spectree.tree import TreeSpec
     spec = TreeSpec((2, 2))
@@ -3693,8 +3806,6 @@ def phase24_gemma(smi):
     emit({"phase": "24c", **exact})
     assert ok, ("Gemma-2 greedy tokens differ from AR, or tree launches are "
                 "off", exact)
-    emit({"phase": "24d", "cli": arch_clis(((GEMMA, False),), phase="24d"),
-          "nvidia_smi": smi})
     return tree["tree_attention"] + long_launches
 
 
@@ -4020,7 +4131,8 @@ def phase25_moe(smi):
     grok-1-314b (static; d 6144, 8 experts top-2 of width 32768, softcap
     30, V 131072: 46 GB), and at 1.25 the drops and the agreement with AR
     printed, asserted neither; (e) TVD++ steps of granite's drafter
-    (``moe_tvdpp``); (f) the serving CLI by tree at full width. Returns
+    (``moe_tvdpp``); (f), the serving CLI by tree at full width, runs in
+    a CliPool. Returns
     (the tree_attention launches of (a) and (b), the launches of (c) and
     (e))."""
     from repro_torch.configs import get_config
@@ -4101,8 +4213,6 @@ def phase25_moe(smi):
         gc.collect()
         torch.cuda.empty_cache()
     distill_launches = moe_tvdpp(smi)
-    emit({"phase": "25f", "cli": arch_clis(((GRANITE, False),), phase="25f"),
-          "nvidia_smi": smi})
     moe_launches = {**distill_launches, "quant_matmul_int8": quant_launches}
     return tree["tree_attention"] + cont["launches"]["tree_attention"], \
         moe_launches
@@ -4471,42 +4581,43 @@ def zamba_int8(smi):
     return launches["quant_matmul_int8"]
 
 
-def recurrent_clis():
-    """26f: the serving CLI for zamba2 at full width in a subprocess: by
-    chain (4 requests, 16 + 8 tokens, 0.7) it must exit 0 having served
-    them with no kernel launched; with --tree (in this process: the CPU
-    test runs it as a subprocess) it must exit with the reference's
+RECURRENT_CLI = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                 "zamba2-7b", "--temperature", "0.7", "--requests", "4",
+                 "--max-new", "8"]
+
+
+def recurrent_tree_refusal():
+    """26f: the serving CLI for zamba2 with --tree (in this process: the
+    CPU test runs it as a subprocess) must exit with the reference's
     refusal, before building a model."""
     from repro_torch.launch import serve
     from repro_torch.spectree.round import TREE_REFUSAL
-    out = {}
     t0 = time.perf_counter()
     try:
         serve.main(["--arch", ZAMBA, "--tree", "--temperature", "0.7"])
         code = 0
     except SystemExit as e:
         code = e.code
-    out["tree"] = {"cmd": f"serve.main --arch {ZAMBA} --tree", "exit": code,
-                   "s": time.perf_counter() - t0,
-                   "refused": code == TREE_REFUSAL}
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ZAMBA,
-           "--temperature", "0.7", "--requests", "4", "--max-new", "8"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                          cwd=ROOT,
-                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    return {"cmd": f"serve.main --arch {ZAMBA} --tree", "exit": code,
+            "s": time.perf_counter() - t0, "refused": code == TREE_REFUSAL}
+
+
+def check_recurrent_cli(smi, pool):
+    """26f: the serving CLI for zamba2 at full width by chain in a
+    subprocess (job "26f-chain" of a ``CliPool``; 4 requests, 16 + 8
+    tokens, 0.7): it must exit 0 having served them with no kernel
+    launched."""
+    proc, s = pool.wait(["26f-chain"])["26f-chain"]
     found = LAUNCH_LINE.search(proc.stdout)
-    out["chain"] = {"cmd": " ".join(cmd[2:]), "rc": proc.returncode,
-                    "s": time.perf_counter() - t0,
-                    "launches": json.loads(found[1]) if found else None,
-                    "served": SERVED_LINE.search(proc.stdout) is not None,
-                    "stdout": proc.stdout.strip().splitlines()[-4:],
-                    "stderr": proc.stderr.strip().splitlines()[-3:]}
-    chain = out["chain"]
-    ok = (chain["rc"] == 0 and chain["launches"] is not None
-          and not any(chain["launches"].values()) and chain["served"]
-          and out["tree"]["refused"])
-    return out, ok
+    chain = {"cmd": " ".join(RECURRENT_CLI[2:]), "rc": proc.returncode,
+             "s": s, "launches": json.loads(found[1]) if found else None,
+             "served": SERVED_LINE.search(proc.stdout) is not None,
+             "stdout": proc.stdout.strip().splitlines()[-4:],
+             "stderr": proc.stderr.strip().splitlines()[-3:]}
+    emit({"phase": "26f", "cli": {"chain": chain}, "nvidia_smi": smi})
+    assert (chain["rc"] == 0 and chain["launches"] is not None
+            and not any(chain["launches"].values()) and chain["served"]), \
+        ("zamba2's serving CLI run by chain failed", chain)
 
 
 def phase26_recurrent(smi):
@@ -4515,8 +4626,9 @@ def phase26_recurrent(smi):
     (c) greedy exactness (``recurrent_greedy_exactness``); (d) zamba2 at
     int8 (``zamba_int8``); (e) 2 TVD++ steps of zamba2's drafter against
     the full-width target at 2 x 1024, V 32000 (``tvdpp_steps``); (f) the
-    serving CLI (``recurrent_clis``). Returns the launches of (d) and
-    (e)."""
+    serving CLI's --tree refusal (``recurrent_tree_refusal``; its chain
+    run goes in a CliPool, ``check_recurrent_cli``). Returns the launches
+    of (d) and (e)."""
     serving = {arch: recurrent_serving(arch, phase, smi)
                for arch, phase in ((ZAMBA, "26a"), (XLSTM, "26b"))}
     out, ok = recurrent_greedy_exactness()
@@ -4524,9 +4636,10 @@ def phase26_recurrent(smi):
     assert ok, ("recurrent greedy tokens differ from AR", out)
     quant = zamba_int8(smi)
     distill = tvdpp_steps(ZAMBA, "26e", smi)
-    clis, ok = recurrent_clis()
-    emit({"phase": "26f", "cli": clis, "serving": serving, "nvidia_smi": smi})
-    assert ok, ("zamba2's serving CLI runs failed", clis)
+    tree = recurrent_tree_refusal()
+    emit({"phase": "26f", "cli": {"tree": tree}, "serving": serving,
+          "nvidia_smi": smi})
+    assert tree["refused"], ("zamba2's serving CLI did not refuse --tree", tree)
     return {**distill, "quant_matmul_int8": quant}
 
 
@@ -4584,7 +4697,7 @@ print(json.dumps({k: r[k] for k in ("memory", "collectives",
 def start_dryrun_clis():
     """27c's dry-run CLIs and 28c's one-card sharded trace, each in a
     subprocess of its own (no card: they run on the host's cores beside
-    phases 27, 28, 5, 17, 20, 6 and 7, which assert no host timing)."""
+    phases 27, 28, 7, 10 and 21, which assert no host timing)."""
     procs = start_cli_procs()
     procs["one_card_trace"] = subprocess.Popen(
         [sys.executable, "-c", ONE_CARD_TRACE, str(MG_B), str(MG_P + MG_NEW)],
@@ -5079,7 +5192,7 @@ def phase29_analysis(models, smi):
     shared memory, blocks an SM and spills against Hopper's limits, and
     the launch plans at the swept shapes), 0 errors; the CLI ``python -m
     repro_torch.analysis --all --json`` runs in a subprocess beside phases
-    27 to 7 (``start_analysis_cli``, ``finish_analysis_cli``), exit 0."""
+    27 to 21 (``start_analysis_cli``, ``finish_analysis_cli``), exit 0."""
     from repro_torch.analysis import round_audit as ra
     from repro_torch.analysis.kernel_lint import run_kernel_lint
     from repro_torch.analysis.recompile import run_sentinel
@@ -5124,6 +5237,9 @@ def phase29_analysis(models, smi):
     assert lint.errors == [], lint.format()
     instances = lint.stats["instances"]
     assert len(instances) >= 80, len(instances)
+    ring = [r for r in instances if r["symbol"] == HD256_INSTANCE]
+    assert len(ring) == 1 and ring[0]["spill_stores"] == 0 \
+        and ring[0]["spill_loads"] == 0, ring
     for r in instances:
         print(f"29c {r['library']}: {r['symbol']}: {r['registers']} regs x "
               f"{r['threads']} threads, smem {r['static_smem']} static + "
@@ -5148,6 +5264,33 @@ def phase29_analysis(models, smi):
           "seconds": {"29a": round(t_a, 3), "29b": round(t_b, 3),
                       "29c": round(t_c, 3)},
           "nvidia_smi": smi})
+
+
+# the GB of the card each CliPool's runs may hold together: the light
+# pool's run beside phases 28 to 21 (phase 27b's 70 GB freed; phase 10's
+# build peaks at 35 GB), the wide pool's beside phases 5 to 13 (a few GB;
+# 16 GB of the card's 85 left for the slack of estimates and contexts)
+LIGHT_CLI_GB, WIDE_CLI_GB = 8, 64
+
+
+def light_cli_jobs():
+    """The CLI runs of the reduced config: phases 14, 15 and 21's training
+    CLI and its checkpoint served."""
+    return {**train_cli_jobs(), "15": (REDUCED_TREE_CLI, 2, None),
+            **{n: job[:3] for n, job in head_cli_jobs().items()
+               if n != "21-serve_continuous_tree"}}
+
+
+def wide_cli_jobs(obs_dir):
+    """The CLI runs at full width, the longest first: phase 18's (the
+    first's files under obs_dir), 21's continuous run, 23e, 24d, 25f and
+    26f's."""
+    return {**continuous_cli_jobs(obs_dir),
+            "21-serve_continuous_tree":
+                head_cli_jobs()["21-serve_continuous_tree"][:3],
+            **arch_cli_jobs(((GEMMA, False),), "24d"), **arch_cli_jobs(),
+            **arch_cli_jobs(((GRANITE, False),), "25f"),
+            "26f-chain": (RECURRENT_CLI, CLI_GB[ZAMBA], None)}
 
 
 PHASE_SECONDS = {}
@@ -5210,41 +5353,57 @@ def main():
     torch.cuda.empty_cache()
     rec_launches = timed(26, phase26_recurrent, smi)
     torch.cuda.empty_cache()
-    dry_procs = start_dryrun_clis()     # 27c/28c: beside phases 27 to 7
+    dry_procs = start_dryrun_clis()     # 27c/28c: beside phases 27 to 21
     analysis_cli = start_analysis_cli()     # 29c: likewise
     c27 = timed(27, phase27_codebooks, smi)
     torch.cuda.empty_cache()
+    # the reduced config's CLI runs (phases 14, 15, 21) beside phases 28 to
+    # 21, after 27's 70 GB; they are read after phase 13
+    light = CliPool(light_cli_jobs(), slots=2, budget_gb=LIGHT_CLI_GB)
     sharded_tree = timed(28, phase28_sharded, smi)
     torch.cuda.empty_cache()
+    launches.update({k: v for k, v in timed(7, phase7_training, smi).items()
+                     if k in ("row_logsumexp", "loss_terms", "loss_grad")})
+    torch.cuda.empty_cache()
+    for weights in ("int8", "int4"):
+        launches[f"quant_matmul_{weights}"] = timed(
+            f"10-{weights}", phase10_quant_serving, smi, weights)
+        torch.cuda.empty_cache()
+    timed(21, phase21_head_training, smi)
+    torch.cuda.empty_cache()
+    timed("27c-28c", finish_dry_runs, dry_procs, c27, smi)
+    timed("29c", finish_analysis_cli, analysis_cli, smi)
+    # the full-width CLI runs (phases 18, 21, 23e, 24d, 25f, 26f) beside
+    # phases 5 to 13, which hold a few GB of the card and assert no host
+    # timing; phases 6 and 9 time kernels after both pools have ended
+    obs_dir = tempfile.TemporaryDirectory()
+    wide = CliPool(wide_cli_jobs(Path(obs_dir.name)), slots=3,
+                   budget_gb=WIDE_CLI_GB)
     timed(5, phase5_greedy_exactness)
     torch.cuda.empty_cache()
     cont_exact = timed(17, phase17_continuous_greedy_exactness)
     torch.cuda.empty_cache()
     timed(20, phase20_head_greedy_exactness)
     torch.cuda.empty_cache()
-    timings.update(timed(6, phase6_distill_kernels))
-    launches.update({k: v for k, v in timed(7, phase7_training, smi).items()
-                     if k in ("row_logsumexp", "loss_terms", "loss_grad")})
-    torch.cuda.empty_cache()
-    timed("27c-28c", finish_dry_runs, dry_procs, c27, smi)
-    timed("29c", finish_analysis_cli, analysis_cli, smi)
     timed(8, phase8_float32_routes)
     torch.cuda.empty_cache()
-    # phase 9 runs last: after its M 512 timings the host dispatched phase
-    # 10's rounds 1.7 times slower on an H100 host (PERF.md)
-    for weights in ("int8", "int4"):
-        launches[f"quant_matmul_{weights}"] = timed(
-            f"10-{weights}", phase10_quant_serving, smi, weights)
-        torch.cuda.empty_cache()
     timed(11, phase11_quant_greedy_exactness)
     torch.cuda.empty_cache()
     timed(13, phase13_pipeline, smi)
     torch.cuda.empty_cache()
-    timed(14, phase14_train_cli, smi)
-    timed(15, phase15_reduced_tree_cli, smi)
-    timed(18, phase18_continuous_cli, smi)
-    timed(21, phase21_head_training, smi)
-    torch.cuda.empty_cache()
+    timed(14, phase14_train_cli, smi, light)
+    timed(15, phase15_reduced_tree_cli, smi, light)
+    timed("21-cli", check_head_clis, smi, {
+        **light.wait(["21-train", "21-serve_tree"]),
+        **wide.wait(["21-serve_continuous_tree"])})
+    timed(18, phase18_continuous_cli, smi, wide, obs_dir)
+    timed("23e", check_arch_clis, smi, wide)
+    timed("24d", check_arch_clis, smi, wide, ((GEMMA, False),), "24d")
+    timed("25f", check_arch_clis, smi, wide, ((GRANITE, False),), "25f")
+    timed("26f", check_recurrent_cli, smi, wide)
+    timings.update(timed(6, phase6_distill_kernels))
+    # phase 9 runs last: after its M 512 timings the host dispatched phase
+    # 10's rounds 1.7 times slower on an H100 host (PERF.md)
     timings.update(timed(9, phase9_quant_kernels))
     kernels = []
     for name, (route, source, replaces) in KERNEL_ROUTES.items():

@@ -29,11 +29,18 @@
 //     taking 16-slot chunks with the next chunk's K and V in flight, so
 //     that a warp's chain of dependent loads is short; the target's verify
 //     pass is 128 blocks of one split, at most 2 chunks a warp;
-//   * otherwise (fp32, hd 16 and 256) the CUDA-core kernel: a group of
-//     LANES adjacent lanes reads a slot's strided K (or V) row in 16-byte
-//     loads, UNROLL slots a step with all loads issued before any
-//     arithmetic, and a block holds RT (1, 2, 4 or 8) of the N*G rows in
-//     registers, more rows taking more row tiles.
+//   * bf16 at head dim 256 (Gemma-2-9B's verify) runs on the tensor cores
+//     too (tree_attention_mma_ring), where a warp's q fragments, output
+//     and K in registers would take about 320: 4 warps a block, each
+//     staging its chunks' K and V rows in its own 2-stage cp.async ring in
+//     shared memory, q and K read by ldmatrix, V by ldmatrix.trans (the
+//     staging of flash_decode.cu's MmaWarp); the verify pass past the
+//     window is 32 (batch, kv head) tiles x 4 splits, 17 chunks a warp;
+//   * otherwise (fp32 at every head dim, bf16 at hd 16) the CUDA-core
+//     kernel: a group of LANES adjacent lanes reads a slot's strided K (or
+//     V) row in 16-byte loads, UNROLL slots a step with all loads issued
+//     before any arithmetic, and a block holds RT (1, 2, 4 or 8) of the
+//     N*G rows in registers, more rows taking more row tiles.
 // Each row's node selects its mask row. The partial states are combined in
 // a fixed order, so the result does not depend on scheduling.
 //
@@ -45,11 +52,14 @@
 // dims 16, 32, 64, 128 and 256.
 //
 // Resources (nvcc 12.8 -Xptxas -v for sm_90a, as chip_smoke.py phase 1
-// prints them): tree_attention_mma at hd 32/64/128: 80/124/210 registers,
-// 20/36/68 KiB of dynamic shared memory, no spills. tree_attention_kernel:
-// 71-255 registers and 2-36 KiB of shared memory across its 28 instances
-// (RT 8 at hd 16 and 256 takes 255); fp32 at hd 256 with RT 8 spills
-// 108/84 bytes, at hd 128 and 64 with RT 1 or 2 8-12 bytes.
+// prints them): tree_attention_mma at hd 32/64/128: 80/128/206 registers,
+// 20/36/68 KiB of dynamic shared memory, hd 64 spilling 4/4 bytes;
+// tree_attention_mma_ring at hd 256: 244 registers, 140.25 KiB of dynamic
+// and 512 B of static shared memory, one block an SM, no spills.
+// tree_attention_kernel: 71-255 registers and 2-36 KiB of shared memory
+// across its 24 instances (RT 8 at hd 16 and 256 takes 255);
+// fp32 at hd 256 with RT 8 spills 108/84 bytes, at hd 128 and 64 with RT
+// 1 or 2 8-12 bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -292,9 +302,160 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0));
 }
 
+// Four bf16 8x8 matrices from shared memory, lanes 8i..8i+7 giving the row
+// addresses of matrix i: register i of lane l holds row l/4, columns
+// 2(l%4) and +1 of matrix i (ldsm_x4), or of its transpose (ldsm_x4_trans)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 constexpr int MMA_ROWS = 16;    // query rows per block: the MMA's M
 constexpr int CHUNK = 16;       // slots per warp and step: the MMA's K of p.V
 constexpr int MMA_THREADS = 256;  // 8 warps: a short chain of chunks each
+
+// The tensor-core kernels' steps for a warp's 16 query rows: lane l holds
+// rows g = l / 4 and g + 8 (c 0, 1 and c 2, 3 of a C fragment), t = l % 4.
+
+// The online softmax of the rows over a chunk of 16 slots: p holds the
+// chunk's scores (C fragments of two 8-slot tiles), m the rows' running
+// max, l this lane's share of their sums; acc is rescaled, and p becomes
+// the A operand of p.V (slots 2t, 2t+1 | 2t+8, 2t+9) in two bf16 terms,
+// hi + lo, which keep 16 bits of p.
+template <int NT>
+__device__ __forceinline__ void softmax_chunk(float (&p)[2][4], float (&m)[2],
+                                              float (&l)[2], float (&acc)[NT][4],
+                                              uint32_t (&ph)[4],
+                                              uint32_t (&pl)[4]) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float mx = fmaxf(fmaxf(p[0][2 * hr], p[0][2 * hr + 1]),
+                     fmaxf(p[1][2 * hr], p[1][2 * hr + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[hr], mx);
+    const float alpha = __expf(m[hr] - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int c = 2 * hr; c < 2 * hr + 2; ++c) {
+        p[nt][c] = __expf(p[nt][c] - m_new);
+        psum += p[nt][c];
+      }
+    l[hr] = l[hr] * alpha + psum;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      acc[i][2 * hr] *= alpha;
+      acc[i][2 * hr + 1] *= alpha;
+    }
+    m[hr] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float p0 = p[i >> 1][2 * (i & 1)];
+    const float p1 = p[i >> 1][2 * (i & 1) + 1];
+    const float h0 = __bfloat162float(__float2bfloat16_rn(p0));
+    const float h1 = __bfloat162float(__float2bfloat16_rn(p1));
+    ph[i] = pack_bf16(h0, h1);
+    pl[i] = pack_bf16(p0 - h0, p1 - h1);
+  }
+}
+
+// acc += p.V over a chunk of 16 staged V rows; vrow is this lane's row
+// address for ldmatrix.trans: matrices (slots 0-7 | 8-15) x (columns 0-7 |
+// 8-15) give b0, b1 of column tile 2d, then of tile 2d + 1
+template <int NT>
+__device__ __forceinline__ void pv_chunk(float (&acc)[NT][4],
+                                         const uint32_t (&ph)[4],
+                                         const uint32_t (&pl)[4],
+                                         const __nv_bfloat16* vrow) {
+#pragma unroll
+  for (int d = 0; d < NT / 2; ++d) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, vrow + 16 * d);
+    mma_bf16(acc[2 * d], pl[0], pl[1], pl[2], pl[3], b[0], b[1]);
+    mma_bf16(acc[2 * d], ph[0], ph[1], ph[2], ph[3], b[0], b[1]);
+    mma_bf16(acc[2 * d + 1], pl[0], pl[1], pl[2], pl[3], b[2], b[3]);
+    mma_bf16(acc[2 * d + 1], ph[0], ph[1], ph[2], ph[3], b[2], b[3]);
+  }
+}
+
+// The warps' states combined in warp order, once every warp is done with
+// the block's dynamic shared memory raw (WARPS * 16 * HD floats): rows
+// row0 .. row0 + live - 1 of the output, normalised (one split), or their
+// partial states in part (split blockIdx.z).
+template <int HD, int WARPS>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
+                                           const float (&m)[2], float (&l)[2],
+                                           uint8_t* raw,
+                                           float (&sm_m)[WARPS][MMA_ROWS],
+                                           float (&sm_l)[WARPS][MMA_ROWS],
+                                           float* out, float* part,
+                                           size_t row0, int live, int splits) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+  }
+  __syncthreads();                     // every warp is done with raw
+  float* sm_acc = reinterpret_cast<float*>(raw);   // [WARPS][16][HD]
+  if (t == 0) {
+    sm_m[warp][g] = m[0];
+    sm_m[warp][g + 8] = m[1];
+    sm_l[warp][g] = l[0];
+    sm_l[warp][g + 8] = l[1];
+  }
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = g + 8 * (c >> 1);
+      sm_acc[(warp * MMA_ROWS + row) * HD + 8 * i + 2 * t + (c & 1)] = acc[i][c];
+    }
+  __syncthreads();
+  for (int e = threadIdx.x; e < live * HD; e += 32 * WARPS) {
+    const int i = e / HD;
+    const int d = e - i * HD;
+    float mt = MASKED;
+    for (int w = 0; w < WARPS; ++w) mt = fmaxf(mt, sm_m[w][i]);
+    float lt = 0.f, at = 0.f;
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = __expf(sm_m[w][i] - mt);
+      lt = fmaf(wt, sm_l[w][i], lt);
+      at = fmaf(wt, sm_acc[(w * MMA_ROWS + i) * HD + d], at);
+    }
+    const size_t row = row0 + i;
+    if (splits == 1) {
+      out[row * HD + d] = at / fmaxf(lt, 1e-30f);
+    } else {
+      float* pp = part + (row * splits + blockIdx.z) * (HD + 2);
+      pp[d] = at;
+      if (d == 0) {
+        pp[HD] = mt;
+        pp[HD + 1] = lt;
+      }
+    }
+  }
+}
 
 template <int HD>
 struct MmaSmem {  // V double buffers of the warps, then their states
@@ -443,117 +604,199 @@ tree_attention_mma(const __nv_bfloat16* __restrict__ q,
             in && (c < 2 ? live_a && mra[sl] : live_b && mrb[sl]);
         sc[nt][c] = !in ? -INFINITY : keep ? x : MASKED;
       }
-    // online softmax of rows g (c 0, 1) and g + 8 (c 2, 3) over the chunk
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float mx = fmaxf(fmaxf(sc[0][2 * hr], sc[0][2 * hr + 1]),
-                       fmaxf(sc[1][2 * hr], sc[1][2 * hr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m2[hr], mx);
-      const float alpha = __expf(m2[hr] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int c = 2 * hr; c < 2 * hr + 2; ++c) {
-          sc[nt][c] = __expf(sc[nt][c] - m_new);
-          psum += sc[nt][c];
-        }
-      l2[hr] = l2[hr] * alpha + psum;
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        acc[i][2 * hr] *= alpha;
-        acc[i][2 * hr + 1] *= alpha;
-      }
-      m2[hr] = m_new;
-    }
-    // p as the A operand of p.V (slots 2t, 2t+1 | 2t+8, 2t+9), in two terms
     uint32_t ph[4], pl[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p0 = sc[i >> 1][2 * (i & 1)];
-      const float p1 = sc[i >> 1][2 * (i & 1) + 1];
-      const float h0 = __bfloat162float(__float2bfloat16_rn(p0));
-      const float h1 = __bfloat162float(__float2bfloat16_rn(p1));
-      ph[i] = pack_bf16(h0, h1);
-      pl[i] = pack_bf16(p0 - h0, p1 - h1);
-    }
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");   // chunk c0's V
+    softmax_chunk(sc, m2, l2, acc, ph, pl);
+    cp_async_wait<1>();                // chunk c0's V
     __syncwarp();
-    // B fragments of V, two 8-column tiles at a time: matrices (slots
-    // 0-7 | 8-15) x (columns 0-7 | 8-15), transposed by ldmatrix
     const int mat = lane >> 3;
-    const __nv_bfloat16* vrow =
-        vbuf(it) + ((lane & 7) + 8 * (mat & 1)) * VSTRIDE + 8 * (mat >> 1);
-#pragma unroll
-    for (int d = 0; d < HD / 16; ++d) {
-      uint32_t b0, b1, b2, b3;
-      const unsigned addr = (unsigned)__cvta_generic_to_shared(vrow + 16 * d);
-      asm volatile(
-          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-          : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-          : "r"(addr));
-      mma_bf16(acc[2 * d], pl[0], pl[1], pl[2], pl[3], b0, b1);
-      mma_bf16(acc[2 * d], ph[0], ph[1], ph[2], ph[3], b0, b1);
-      mma_bf16(acc[2 * d + 1], pl[0], pl[1], pl[2], pl[3], b2, b3);
-      mma_bf16(acc[2 * d + 1], ph[0], ph[1], ph[2], ph[3], b2, b3);
-    }
+    pv_chunk(acc, ph, pl,
+             vbuf(it) + ((lane & 7) + 8 * (mat & 1)) * VSTRIDE + 8 * (mat >> 1));
     __syncwarp();                      // the buffer is refilled next chunk
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int j = 0; j < KS; ++j) kr[nt][j] = kn[nt][j];
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cp_async_wait<0>();
+  store_rows<HD, WARPS>(acc, m2, l2, raw, sm_m, sm_l, out, part,
+                        (size_t)bh * rows + r0, min(rows - r0, MMA_ROWS),
+                        splits);
+}
 
-  // the warps' states, combined in warp order
+// ---- bf16 at head dim 256: K and V staged in shared memory
+
+// The shared memory of tree_attention_mma_ring: the query tile (16 rows,
+// zeros past the N*G rows), then each warp's ring of NST stages, a stage
+// holding a chunk's 16 K rows and then its 16 V rows; after the slot loop
+// the warps' states. A head row of 512 bytes: 4 warps with 2-stage rings,
+// 140 KiB, one block an SM (as flash_decode.cu's MmaWarp at hd 256).
+template <int HD>
+struct RingSmem {
+  static constexpr int WARPS = 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int NST = 2;
+  static constexpr int LD = HD + 8;            // staged row: no conflicts
+  static constexpr int STAGE = 2 * CHUNK * LD;
+  static constexpr int QBYTES = MMA_ROWS * LD * 2;
+  static constexpr int BYTES = QBYTES + WARPS * NST * STAGE * 2;
+  static_assert(WARPS * MMA_ROWS * HD * 4 <= BYTES, "states overflow");
+};
+
+// The same function as tree_attention_mma where a warp's q fragments,
+// output and two chunks of K would not fit its registers (hd 256: 320
+// registers). Each warp takes 16-slot chunks of the block's share in turn
+// (warp w: chunks w, w + 4, ...) and stages their K and V rows in its own
+// ring by cp.async, NST - 1 chunks ahead of the one it computes. Scores: q
+// (16 rows, A) times K (B), both read from shared memory by ldmatrix,
+// exact bf16 products, fp32 sums in two chains; row g and g + 8 of the
+// tile each take their node's mask row. p.V as in tree_attention_mma. The
+// grid, the slot split and the partial state are those of
+// tree_attention_kernel, with RT = 16.
+template <int HD>
+__global__ void __launch_bounds__(RingSmem<HD>::THREADS)
+tree_attention_mma_ring(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const uint8_t* __restrict__ mask,
+                        float* __restrict__ out, float* __restrict__ part,
+                        int S, int Hkv, int N, int G, int chunk, int splits,
+                        float scale, int has_cap, float cap) {
+  using SM = RingSmem<HD>;
+  constexpr int WARPS = SM::WARPS, THREADS = SM::THREADS, LD = SM::LD;
+  constexpr int NT = HD / 8;           // 8-column tiles of the output
+  extern __shared__ __align__(16) uint8_t raw[];
+  __shared__ float sm_m[WARPS][MMA_ROWS];
+  __shared__ float sm_l[WARPS][MMA_ROWS];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(raw);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(raw + SM::QBYTES);
+
+  const int rows = N * G;
+  const int bh = blockIdx.x;
+  const int b = bh / Hkv;
+  const int h = bh - b * Hkv;
+  const int r0 = blockIdx.y * MMA_ROWS;
+  const int live = min(rows - r0, MMA_ROWS);   // rows of this tile
+  const int s_begin = blockIdx.z * chunk;
+  const int s_end = min(S, s_begin + chunk);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mat = lane >> 3, r8 = lane & 7;
+
+  // this warp's chunks: c0 = first + i * span, i < n
+  constexpr int span = WARPS * CHUNK;
+  const int first = s_begin + warp * CHUNK;
+  const int n = first < s_end ? (s_end - first + span - 1) / span : 0;
+  const size_t stride = (size_t)Hkv * HD;
+  const __nv_bfloat16* kbase = k + ((size_t)b * S * Hkv + h) * HD;
+  const __nv_bfloat16* vbase = v + ((size_t)b * S * Hkv + h) * HD;
+  __nv_bfloat16* wring = ring + warp * SM::NST * SM::STAGE;
+  // chunk i's K and V rows into stage i % NST, zeros past the share
+  auto fetch = [&](int i) {
+    constexpr int PIECES = HD / 8;     // 16-byte copies a row
+    const int c0 = first + i * span;
+    __nv_bfloat16* dst = wring + (i % SM::NST) * SM::STAGE;
+    for (int e = lane; e < CHUNK * PIECES; e += 32) {
+      const int r = e / PIECES;
+      const int c = (e - r * PIECES) * 8;
+      const bool ok = c0 + r < s_end;
+      const size_t off = ok ? (size_t)(c0 + r) * stride + c : 0;
+      cp_async16(dst + r * LD + c, kbase + off, ok);
+      cp_async16(dst + (CHUNK + r) * LD + c, vbase + off, ok);
+    }
+  };
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    l2[hr] += __shfl_xor_sync(0xffffffffu, l2[hr], 1);
-    l2[hr] += __shfl_xor_sync(0xffffffffu, l2[hr], 2);
+  for (int i = 0; i < SM::NST - 1; ++i) {
+    if (i < n) fetch(i);
+    asm volatile("cp.async.commit_group;\n" ::);
   }
-  __syncthreads();                     // every warp is done with raw
-  float* sm_acc = reinterpret_cast<float*>(raw);   // [WARPS][16][HD]
-  if (t == 0) {
-    sm_m[warp][g] = m2[0];
-    sm_m[warp][g + 8] = m2[1];
-    sm_l[warp][g] = l2[0];
-    sm_l[warp][g + 8] = l2[1];
+
+  // the query tile while the first chunks load
+  const __nv_bfloat16* qb = q + ((size_t)bh * rows + r0) * HD;
+  for (int e = threadIdx.x; e < MMA_ROWS * HD / 8; e += THREADS) {
+    const int i = e / (HD / 8);
+    const int c = (e - i * (HD / 8)) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (i < live) x = *reinterpret_cast<const uint4*>(qb + i * HD + c);
+    *reinterpret_cast<uint4*>(qs + i * LD + c) = x;
   }
+  __syncthreads();
+
+  // this lane's rows g and g + 8 of the tile, each its node's mask row
+  const bool live_a = g < live, live_b = g + 8 < live;
+  const uint8_t* mra = mask + ((size_t)b * N + (live_a ? (r0 + g) / G : 0)) * S;
+  const uint8_t* mrb =
+      mask + ((size_t)b * N + (live_b ? (r0 + g + 8) / G : 0)) * S;
+  // the softcap as a product by 1/cap, within an ulp of x / cap: the
+  // division took 9% of Gemma's paged verify on an H100 (PERF.md)
+  const float inv_cap = 1.f / cap;
+  float m2[2] = {MASKED, MASKED};      // rows g, g + 8
+  float l2[2] = {0.f, 0.f};            // this lane's share of the sums
+  float acc[NT][4];
 #pragma unroll
   for (int i = 0; i < NT; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int row = g + 8 * (c >> 1);
-      sm_acc[(warp * MMA_ROWS + row) * HD + 8 * i + 2 * t + (c & 1)] = acc[i][c];
-    }
-  __syncthreads();
-  for (int e = threadIdx.x; e < MMA_ROWS * HD; e += MMA_THREADS) {
-    const int i = e / HD;
-    const int d = e - i * HD;
-    const int r = r0 + i;
-    if (r >= rows) continue;
-    float mt = MASKED;
-    for (int w = 0; w < WARPS; ++w) mt = fmaxf(mt, sm_m[w][i]);
-    float lt = 0.f, at = 0.f;
-    for (int w = 0; w < WARPS; ++w) {
-      const float wt = __expf(sm_m[w][i] - mt);
-      lt = fmaf(wt, sm_l[w][i], lt);
-      at = fmaf(wt, sm_acc[(w * MMA_ROWS + i) * HD + d], at);
-    }
-    const size_t row = (size_t)bh * rows + r;
-    if (splits == 1) {
-      out[row * HD + d] = at / fmaxf(lt, 1e-30f);
-    } else {
-      float* pp = part + (row * splits + blockIdx.z) * (HD + 2);
-      pp[d] = at;
-      if (d == 0) {
-        pp[HD] = mt;
-        pp[HD + 1] = lt;
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  // q's matrices (rows 0-7 | 8-15) x (hd 0-7 | 8-15) of a k16 step give
+  // a0-a3; K's (slots 0-7 | 8-15) x (hd 0-7 | 8-15) give b0, b1 of slot
+  // tile 0, then of 1
+  const __nv_bfloat16* qrow = qs + (r8 + 8 * (mat & 1)) * LD + 8 * (mat >> 1);
+  const int koff = (r8 + 8 * (mat >> 1)) * LD + 8 * (mat & 1);
+  const int voff = (CHUNK + r8 + 8 * (mat & 1)) * LD + 8 * (mat >> 1);
+
+  for (int i = 0; i < n; ++i) {
+    if (i + SM::NST - 1 < n) fetch(i + SM::NST - 1);
+    asm volatile("cp.async.commit_group;\n" ::);   // empty groups count too
+    const int c0 = first + i * span;
+    // the mask bytes of this lane's slots c0 + 8nt + 2t + c, read while
+    // the chunk lands
+    bool ka[2][2], kb[2][2], in[2][2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int sl = c0 + 8 * nt + 2 * t + c;
+        in[nt][c] = sl < s_end;
+        ka[nt][c] = in[nt][c] && live_a && mra[sl] != 0;
+        kb[nt][c] = in[nt][c] && live_b && mrb[sl] != 0;
       }
+    cp_async_wait<SM::NST - 1>();      // chunk i has landed
+    __syncwarp();
+    const __nv_bfloat16* st = wring + (i % SM::NST) * SM::STAGE;
+    float sc[2][2][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[hh][nt][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4], bk[4];
+      ldsm_x4(a, qrow + 16 * kk);
+      ldsm_x4(bk, st + koff + 16 * kk);
+      mma_bf16(sc[kk & 1][0], a[0], a[1], a[2], a[3], bk[0], bk[1]);
+      mma_bf16(sc[kk & 1][1], a[0], a[1], a[2], a[3], bk[2], bk[3]);
     }
+    // C fragment: (row g | g + 8, slot c0 + 8nt + 2t + (c & 1))
+    float p[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = (sc[0][nt][c] + sc[1][nt][c]) * scale;
+        if (has_cap) x = cap * tanhf(x * inv_cap);
+        const bool keep = c < 2 ? ka[nt][c & 1] : kb[nt][c & 1];
+        p[nt][c] = !in[nt][c & 1] ? -INFINITY : keep ? x : MASKED;
+      }
+    uint32_t ph[4], pl[4];
+    softmax_chunk(p, m2, l2, acc, ph, pl);
+    pv_chunk(acc, ph, pl, st + voff);
+    __syncwarp();                      // its stage is refilled next
   }
+  cp_async_wait<0>();
+  store_rows<HD, WARPS>(acc, m2, l2, raw, sm_m, sm_l, out, part,
+                        (size_t)bh * rows + r0, live, splits);
 }
 
 struct Args {
@@ -565,14 +808,27 @@ struct Args {
   int* info;   // set: report the instances' resources, launch nothing
 };
 
-// RT 16 with bf16 at head dims 32-128: the tensor-core kernel
+// The tensor-core kernel at head dim HD, its threads and dynamic shared
+// memory: K and V staged in per-warp rings at hd 256, else in registers
+template <int HD>
+struct MmaInstance {
+  static constexpr bool RING = HD > 128;
+  static constexpr int THREADS = RING ? RingSmem<HD>::THREADS : MMA_THREADS;
+  static constexpr int BYTES = RING ? RingSmem<HD>::BYTES : MmaSmem<HD>::BYTES;
+  static auto kernel() {
+    if constexpr (RING) return tree_attention_mma_ring<HD>;
+    else return tree_attention_mma<HD>;
+  }
+};
+
+// RT 16 with bf16 at head dims 32-256: a tensor-core kernel
 template <typename T, int HD, int RT>
 int launch(const Args& a) {
+  using MI = MmaInstance<HD>;
   if (a.info) {
     int err;
     if constexpr (RT == MMA_ROWS)
-      err = kernel_info(tree_attention_mma<HD>, MMA_THREADS,
-                        MmaSmem<HD>::BYTES, a.info);
+      err = kernel_info(MI::kernel(), MI::THREADS, MI::BYTES, a.info);
     else
       err = kernel_info(tree_attention_kernel<T, HD, RT>, THREADS, 0, a.info);
     if (err != 0 || a.splits == 1) return err;
@@ -583,12 +839,11 @@ int launch(const Args& a) {
   const dim3 grid(a.B * a.Hkv, (rows + RT - 1) / RT, a.splits);
   const float scale = 1.0f / sqrtf((float)HD);
   if constexpr (RT == MMA_ROWS) {
-    constexpr int bytes = MmaSmem<HD>::BYTES;
+    const auto kernel = MI::kernel();
     const cudaError_t err = cudaFuncSetAttribute(
-        tree_attention_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MI::BYTES);
     if (err != cudaSuccess) return (int)err;
-    tree_attention_mma<HD><<<grid, MMA_THREADS, bytes, a.stream>>>(
+    kernel<<<grid, MI::THREADS, MI::BYTES, a.stream>>>(
         (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
         (const __nv_bfloat16*)a.v, (const uint8_t*)a.mask, (float*)a.out,
         (float*)a.part, a.S, a.Hkv, a.N, a.G, a.chunk, a.splits, scale,
@@ -609,13 +864,13 @@ int launch(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// Query rows per block: 16 on the tensor cores (bf16, head dims 32-128),
+// Query rows per block: 16 on the tensor cores (bf16, head dims 32-256),
 // else 1, 2, 4 or 8; more rows take several row tiles.
 // kernels/tree_attention.py rows_per_block mirrors this choice.
 template <typename T, int HD>
 int by_rows(const Args& a) {
   const int rows = a.N * a.G;
-  if constexpr (sizeof(T) == 2 && HD >= 32 && HD <= 128) {
+  if constexpr (sizeof(T) == 2 && HD >= 32) {
     return launch<T, HD, MMA_ROWS>(a);
   } else {
     if (rows == 1) return launch<T, HD, 1>(a);

@@ -5,8 +5,9 @@ the Hopper kernel that replaces the TPU kernel
 
 It scores all N nodes of a draft tree in one launch, each under its own
 (B, N, S) ancestor mask, with an online softmax over the slots; the N*G
-query rows of a KV head share each K/V read. bf16 at head dims 32-128
-runs on the tensor cores, everything else on the CUDA cores. Where the
+query rows of a KV head share each K/V read. bf16 at head dims 32-256
+runs on the tensor cores (at 256 with K and V staged in shared memory),
+fp32 and bf16 at head dim 16 on the CUDA cores. Where the
 heads alone would leave SMs idle, the slots of a (batch, kv head) are
 split across blocks (``plan``, as ``kernels.flash_decode`` does) and the
 blocks' partial states combined by a second kernel in a fixed order.
@@ -29,10 +30,12 @@ from .launch import CTYPE, Launch, LaunchPlan
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # as csrc/tree_attention.cu: the CUDA-core kernel's threads and slots per
-# lane group and step; the tensor-core kernel's threads, query rows a block
-# and slots a warp and step
+# lane group and step; the tensor-core kernels' threads (8 warps, 4 where K
+# and V are staged in rings: head dims above RING_ABOVE), query rows a
+# block and slots a warp and step
 THREADS, UNROLL = 128, 4
-MMA_THREADS, MMA_ROWS, MMA_CHUNK = 256, 16, 16
+MMA_THREADS, RING_THREADS, MMA_ROWS, MMA_CHUNK = 256, 128, 16, 16
+RING_ABOVE = 128
 COMBINE_THREADS = 64
 # the split count aims at about this many blocks per SM (CUDA cores:
 # rounded up; tensor cores: rounded down, its blocks being heavier)
@@ -55,8 +58,13 @@ def _sm_count(index: int) -> int:
 
 
 def on_tensor_cores(hd: int, itemsize: int) -> bool:
-    """bf16 at head dims 32 to 128 runs the tensor-core kernel."""
-    return itemsize == 2 and 32 <= hd <= 128
+    """bf16 at head dims 32 to 256 runs a tensor-core kernel."""
+    return itemsize == 2 and 32 <= hd <= 256
+
+
+def mma_threads(hd: int) -> int:
+    """Threads a block of the tensor-core kernel at head dim ``hd``."""
+    return RING_THREADS if hd > RING_ABOVE else MMA_THREADS
 
 
 def rows_per_block(rows: int, hd: int, itemsize: int) -> int:
@@ -70,7 +78,7 @@ def rows_per_block(rows: int, hd: int, itemsize: int) -> int:
 def step_slots(hd: int, itemsize: int) -> int:
     """Slots a block reads per step of its loop."""
     if on_tensor_cores(hd, itemsize):
-        return MMA_THREADS // 32 * MMA_CHUNK
+        return mma_threads(hd) // 32 * MMA_CHUNK
     lanes = min(32, hd * itemsize // 16)          # lanes reading one slot
     return THREADS // lanes * UNROLL
 
@@ -103,8 +111,9 @@ def launch_plan(B, Hkv, N, G, hd, S, dtype, sms) -> LaunchPlan:
     rows = N * G
     rt = rows_per_block(rows, hd, itemsize)
     if on_tensor_cores(hd, itemsize):
-        main = Launch(f"tree_attention_mma<{hd}>",
-                      (B * Hkv, -(-rows // rt), splits), MMA_THREADS)
+        name = "tree_attention_mma_ring" if hd > RING_ABOVE else "tree_attention_mma"
+        main = Launch(f"{name}<{hd}>", (B * Hkv, -(-rows // rt), splits),
+                      mma_threads(hd))
     else:
         main = Launch(f"tree_attention_kernel<{CTYPE[dtype]}, {hd}, {rt}>",
                       (B * Hkv, -(-rows // rt), splits), THREADS)

@@ -483,7 +483,24 @@ def test_launch_plans_match_the_wrappers_allocations():
     d = dk.launch_plan("loss_terms", 37, 32003, "kld")
     assert d.launches[0].symbol == "loss_terms_kernel<0>"
     assert d.buffers == (("out", (4, 37), torch.float32),)
-    assert len(kl.all_instance_plans()) == 86
+    assert len(kl.all_instance_plans()) == 83
+
+
+@pytest.mark.parametrize("B,S", [(4, 4352), (1, 4352), (4, 201)])
+def test_launch_plan_of_gemma_verify_at_head_dim_256(B, S):
+    """Gemma-2-9B's verify pass (Hkv 8, N 7, G 2, hd 256, bf16) launches the
+    tensor-core instance that stages K and V in rings, then the combine of
+    its splits from an fp32 part buffer of (B*Hkv*N*G, splits, hd + 2)."""
+    p = tk.launch_plan(B, 8, 7, 2, 256, S, torch.bfloat16, 132)
+    assert (p.chunk, p.splits) == tk.plan(B, 8, 7, 2, 256, S, 2, 132)
+    assert p.splits > 1 and p.chunk % p.step == 0 and p.step == 64
+    assert p.launches[0].symbol == "tree_attention_mma_ring<256>"
+    assert p.launches[0].grid == (B * 8, 1, p.splits)
+    assert p.launches[0].threads == 128
+    assert p.launches[1].symbol == "tree_attention_combine"
+    assert p.buffers == (("out", (B, 8, 7, 2, 256), torch.float32),
+                         ("part", (B * 8 * 14, p.splits, 258), torch.float32))
+    assert p.query == (7, 2, 256, 1, p.splits)
 
 
 def test_ptxas_records_parse_a_report():

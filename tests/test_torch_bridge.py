@@ -66,7 +66,8 @@ def test_layer_count_mismatch_raises(reference):
 
 def _port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "compare_flash_decode.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "compare_flash_decode.py",
+                    ROOT / "compare_tree_attention.py"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -104,11 +104,33 @@ def test_kernel_takes_every_head_dim_of_the_reference():
     assert tk.HEAD_DIMS == (16, 32, 64, 128, 256)
 
 
+@pytest.mark.parametrize("hd,itemsize,symbol,threads", [
+    (16, 2, "tree_attention_kernel<__nv_bfloat16, 16, 8>", tk.THREADS),
+    (128, 2, "tree_attention_mma<128>", tk.MMA_THREADS),
+    (256, 2, "tree_attention_mma_ring<256>", tk.RING_THREADS),
+    (256, 4, "tree_attention_kernel<float, 256, 8>", tk.THREADS)])
+def test_instance_by_head_dim_and_dtype(hd, itemsize, symbol, threads):
+    """bf16 at head dims 32-256 runs a tensor-core instance (at 256 the
+    one that stages K and V in rings, 4 warps), fp32 and bf16 at hd 16 the
+    CUDA-core kernel; 16 rows a block on the tensor cores."""
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    assert tk.on_tensor_cores(hd, itemsize) == (itemsize == 2 and hd >= 32)
+    p = tk.launch_plan(4, 8, 7, 2, hd, 201, dtype, 132)
+    assert (p.launches[0].symbol, p.launches[0].threads) == (symbol, threads)
+    mma = tk.on_tensor_cores(hd, itemsize)
+    assert tk.rows_per_block(14, hd, itemsize) == (16 if mma else 8)
+    assert tk.on_tensor_cores(256, 2) and not tk.on_tensor_cores(256, 4)
+
+
 @pytest.mark.parametrize("B,Hkv,N,G,hd,S,itemsize", [
     (4, 32, 7, 1, 128, 201, 2), (4, 32, 7, 1, 128, 1024, 4), (4, 8, 1, 1, 128, 201, 2),
     (4, 8, 4, 1, 128, 201, 4), (4, 8, 7, 3, 128, 201, 2), (2, 4, 13, 3, 64, 300, 4),
     (4, 2, 7, 2, 16, 201, 2), (4, 2, 7, 3, 32, 197, 4), (2, 4, 7, 2, 256, 512, 4),
-    (1, 2, 1, 1, 128, 1, 4), (1, 1, 3, 1, 64, 40000, 2)])
+    (1, 2, 1, 1, 128, 1, 4), (1, 1, 3, 1, 64, 40000, 2),
+    # bf16 at hd 256 (Gemma-2-9B's verify): S 201, the 4,352-slot paged
+    # view at B 4 and B 1, and two row tiles (N 13, G 2)
+    (4, 8, 7, 2, 256, 201, 2), (4, 8, 7, 2, 256, 4352, 2),
+    (1, 8, 7, 2, 256, 4352, 2), (4, 8, 13, 2, 256, 201, 2)])
 def test_split_plan_covers_every_slot_once(B, Hkv, N, G, hd, S, itemsize):
     """The split plan tiles [0, S) in whole steps of the block's loop, no
     split empty, and gives the grid at least half of BLOCKS_PER_SM blocks
@@ -118,7 +140,8 @@ def test_split_plan_covers_every_slot_once(B, Hkv, N, G, hd, S, itemsize):
     assert tk.plan(4, 32, 7, 1, 128, 201, 2, 132) == (256, 1)   # target verify
     step = tk.step_slots(hd, itemsize)
     mma = tk.on_tensor_cores(hd, itemsize)
-    assert step == (tk.MMA_THREADS // 32 * tk.MMA_CHUNK if mma else
+    warps = (tk.RING_THREADS if hd > tk.RING_ABOVE else tk.MMA_THREADS) // 32
+    assert step == (warps * tk.MMA_CHUNK if mma else
                     tk.THREADS // min(32, hd * itemsize // 16) * tk.UNROLL)
     assert chunk % step == 0 and chunk >= step
     assert splits == -(-S // chunk) and (splits - 1) * chunk < S
